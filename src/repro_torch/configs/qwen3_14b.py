@@ -1,0 +1,20 @@
+"""qwen3-14b — dense GQA with qk_norm [hf:Qwen/Qwen3-8B family].
+40L, d_model=5120, 40 heads (GQA kv=8, head_dim=128), d_ff=17408,
+vocab=151936."""
+
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-14b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=17408,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    source="Qwen3 [hf:Qwen/Qwen3-8B]",
+)

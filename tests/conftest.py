@@ -122,6 +122,10 @@ def pytest_configure(config):
         "markers",
         "chaos: fault-injection storms (repro.faults) — seeded chaos "
         "traces over the NDMP engines and the slot loop")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips "
+        "where torch.cuda.is_available() is false")
 
 
 @pytest.fixture
