@@ -16,7 +16,9 @@ Phases, each printing its lines:
 5. slice: ``run_slots`` serving Llama-3.2-3B at full width and depth
    (random f32 weights from a seeded generator), with the launch counts
    of the kernels, then one ``decode_step`` with the kernel against the
-   same with the plain attention, and the kernel at the slice's shape;
+   same with the plain attention, a breakdown of one decode tick and one
+   prefill (host time against device busy time), and the kernel at the
+   slice's shape;
 6. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -57,22 +59,37 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int, flush=None) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, from CUDA events.
-    With ``flush``, it runs between calls, outside the timed region, so
-    each call finds the L2 cache cold, as it does on the serving path."""
+def device_ms(torch, calls, reps: int) -> float:
+    """Mean device time of one call, from two CUDA events around ``reps``
+    passes over ``calls``, queued back to back behind a GPU sleep so that
+    the host's enqueueing does not show.  Calls over inputs that together
+    exceed the 50 MB L2 cache find it cold, as a decode tick does from
+    one layer's cache to the next.  Keep the launches of reps * len(calls)
+    calls under the depth of CUDA's launch queue (about a thousand)."""
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)          # ~0.1 s while the host queues
+    start.record()
+    for _ in range(reps):
+        for call in calls:
+            call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(calls))
+
+
+def host_ms(torch, fn, iters: int) -> float:
+    """Mean wall time of one call of ``fn`` issued back to back."""
     fn()
     torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for s, e in zip(starts, ends):
-        if flush is not None:
-            flush()
-        s.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
         fn()
-        e.record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def decode_bound(q, k, pos_list, L):
@@ -89,36 +106,45 @@ def decode_bound(q, k, pos_list, L):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def measure_decode(torch, F, q, k, v, pos, iters, flush):
-    """flash_decode against flash_decode_ref on the card: error, empty
-    rows, and the kernel, plain, bound and library times."""
+def measure_decode(torch, F, q, caches, pos, reps):
+    """flash_decode against flash_decode_ref on the card over each (k, v)
+    of ``caches``: the worst error, the empty rows, and the kernel, plain,
+    bound and library times of one call (``reps`` passes over the caches
+    for the kernel, a tenth of that for the others)."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.ref import flash_decode_ref
-    B, L = q.shape[0], k.shape[1]
-    out = flash_decode(q, k, v, pos)
-    ref = flash_decode_ref(q, k, v, pos)
-    torch.cuda.synchronize()
+    B, L = q.shape[0], caches[0][0].shape[1]
     pos_list = pos.tolist()
-    err = (out.float() - ref.float()).abs().max().item()
     empty = [b for b in range(B) if pos_list[b] < 0]
-    check(all(bool((out[b] == 0).all()) for b in empty),
-          "an empty row of flash_decode is not exactly 0")
+    err = 0.0
+    for k, v in caches:
+        out = flash_decode(q, k, v, pos)
+        ref = flash_decode_ref(q, k, v, pos)
+        err = max(err, (out.float() - ref.float()).abs().max().item())
+        check(all(bool((out[b] == 0).all()) for b in empty),
+              "an empty row of flash_decode is not exactly 0")
     # the library yardstick: one SDPA call with a boolean mask (the port
     # never calls it)
     idx = torch.arange(L, device=q.device)
     mask = (idx[None, :] <= pos[:, None].long())[:, None, None, :]
-    q4, k4, v4 = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-    kv = k.dtype
+    q4 = q[:, :, None, :].to(caches[0][0].dtype)
 
-    def library():
-        return F.scaled_dot_product_attention(q4.to(kv), k4, v4,
-                                              attn_mask=mask, enable_gqa=True)
-    bound_ms, bound_by = decode_bound(q, k, pos_list, L)
+    def call(fn, k, v):
+        return lambda: fn(q, k, v, pos)
+
+    def library(k, v):
+        k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    kernel_calls = [call(flash_decode, k, v) for k, v in caches]
+    few = max(1, reps // 10)
+    bound_ms, bound_by = decode_bound(q, caches[0][0], pos_list, L)
     return {"max_abs_err": err, "empty_rows": len(empty),
-            "ms": time_ms(torch, lambda: flash_decode(q, k, v, pos), iters, flush),
-            "plain_ms": time_ms(torch, lambda: flash_decode_ref(q, k, v, pos),
-                                max(3, iters // 10), flush),
-            "library_ms": time_ms(torch, library, max(3, iters // 10), flush),
+            "ms": device_ms(torch, kernel_calls, reps),
+            "host_ms": host_ms(torch, kernel_calls[0], 100),
+            "plain_ms": device_ms(torch, [call(flash_decode_ref, k, v)
+                                          for k, v in caches], few),
+            "library_ms": device_ms(torch, [library(k, v) for k, v in caches], few),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -159,15 +185,16 @@ def phase_kernels(torch, F, card):
     pos = torch.randint(0, L, (B,), generator=gen, device="cuda",
                         dtype=torch.int32)
     pos[3], pos[11], pos[0] = -1, -1, L - 1
-    m = measure_decode(torch, F, q, k, v, pos, 50, None)
+    m = measure_decode(torch, F, q, [(k, v)], pos, 20)
     torch.testing.assert_close(
         flash_decode(q, k, v, pos).float(),
         flash_decode_ref(q, k, v, pos).float(), **DECODE_TOL["bfloat16"])
     print(f"kernels: flash_decode bf16 (16, 24, 128) x (16, 32768, 8, 128), "
           f"{m['empty_rows']} empty rows: max abs err {m['max_abs_err']:.3e}; "
-          f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+          f"device time per call: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
           f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}), "
-          f"SDPA {m['library_ms']:.4f} ms ({card})")
+          f"SDPA {m['library_ms']:.4f} ms; wall per kernel call "
+          f"{m['host_ms']:.4f} ms ({card})")
 
 
 def phase_small(torch):
@@ -190,6 +217,56 @@ def phase_small(torch):
     check(done[0] == done[1], "tiny_lm tokens differ between card and CPU")
     print(f"small: tiny_lm ServeLoop, {len(reqs)} requests, "
           f"{sum(map(len, done[1].values()))} tokens: card == CPU token for token")
+
+
+def profiled(torch, fn, repeats: int = 3):
+    """Host time of ``fn`` (mean of ``repeats`` synchronised calls), and
+    one profiled call's device time per kernel name, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / repeats
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us / 1e3
+    return wall_ms, by_kernel
+
+
+def tick_breakdown(torch, model, loop, card):
+    """Where one decode tick and one 512-token prefill spend their time:
+    host time against the device's busy time from the profiler."""
+    from repro_torch.models.model import decode_step, init_cache, prefill
+
+    # each call advances the copy's positions by one; 5 calls stay in range
+    cache = {name: t.clone() for name, t in loop.cache.items()}
+    tok = loop._tok.clone()
+    wall, kernels = profiled(torch, lambda: decode_step(model, cache, tok))
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"breakdown: decode tick at batch 8: host {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle share "
+          f"{100 * (1 - busy / wall):.1f} % ({card})")
+    print("breakdown: tick kernels (ms): " + "; ".join(
+        f"{name[:60]} {ms:.3f}" for name, ms in top))
+    cache = init_cache(model, 1, 576, per_slot_pos=True)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, 512), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+    lengths = torch.full((1,), 512, dtype=torch.int32, device="cuda")
+    wall, kernels = profiled(torch, lambda: prefill(model, cache, prompt, lengths))
+    busy = sum(kernels.values())
+    print(f"breakdown: prefill of 512 tokens: host {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f} %) ({card})")
 
 
 def phase_slice(torch, F, card):
@@ -265,19 +342,24 @@ def phase_slice(torch, F, card):
           f"vs plain attention: max abs logit err {err:.3e} <= 1e-3 x "
           f"{scale:.3f}")
 
-    # the kernel at the slice's own shape and data: layer 0's cache
+    tick_breakdown(torch, model, loop, card)
+
+    # the kernel at the slice's own shape and data: every layer's cache in
+    # turn, as a decode tick reads them
     q = torch.randn((args.capacity, cfg.num_heads, cfg.resolved_head_dim),
                     generator=torch.Generator(device="cuda").manual_seed(3),
                     device="cuda")
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    m = measure_decode(torch, F, q, loop.cache["k"][0], loop.cache["v"][0],
-                       loop.cache["pos"], 200, flush_buf.zero_)
+    caches = [(loop.cache["k"][i], loop.cache["v"][i])
+              for i in range(cfg.num_layers)]
+    m = measure_decode(torch, F, q, caches, loop.cache["pos"], 10)
     check(m["max_abs_err"] <= 1e-5, f"flash_decode err {m['max_abs_err']}")
     print(f"slice: flash_decode f32 at the slice's shape (8, 24, 128) x "
-          f"(8, 576, 8, 128), layer 0's cache: max abs err "
-          f"{m['max_abs_err']:.3e}; kernel {m['ms']:.4f} ms, plain "
-          f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-          f"({m['bound_by']}), SDPA {m['library_ms']:.4f} ms, cold L2 ({card})")
+          f"(8, 576, 8, 128), the {cfg.num_layers} layers' caches in turn: "
+          f"max abs err {m['max_abs_err']:.3e}; device time per call: kernel "
+          f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+          f"{m['bound_ms']:.4f} ms ({m['bound_by']}), SDPA "
+          f"{m['library_ms']:.4f} ms; wall per kernel call "
+          f"{m['host_ms']:.4f} ms ({card})")
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:98",

@@ -33,8 +33,8 @@ REGISTRY: Dict[str, ArchConfig] = {
 def tiny_lm(vocab: int = 512, d_model: int = 128, layers: int = 4) -> ArchConfig:
     """The small dense LM the serving tests and the CLI's ``--arch tiny``
     use.  The JAX package defines it in ``repro/launch/train.py``, the
-    training driver, which this serving slice does not port; it lives
-    here until that driver is ported."""
+    training entry point, which this serving slice does not port; it
+    lives here until that module is ported."""
     return ArchConfig(name="tiny-lm", family="dense", num_layers=layers,
                       d_model=d_model, num_heads=4, num_kv_heads=2,
                       head_dim=32, d_ff=4 * d_model, vocab_size=vocab,

@@ -74,7 +74,7 @@ def build(names: Sequence[str], verbose: bool = False) -> Dict[str, str]:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{logs[name]}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, lib)        # atomic: concurrent builders agree
+            os.replace(tmp, lib)        # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs

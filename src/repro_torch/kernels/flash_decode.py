@@ -21,14 +21,16 @@ not count.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .ref import flash_decode_ref
 
-TILE = 32                  # entries per shared-memory tile (csrc TILE)
-MIN_CHUNK = 4 * TILE       # fewest cache entries one L split covers
-SMEM_LIMIT = 232_448       # dynamic shared memory a block may use on sm_90
+ROWS_PER_PASS = 16         # cache rows a block loads per pass (4 warps x 4)
+MIN_CHUNK = 64             # fewest cache rows one L split covers
+HEAD_DIMS = (32, 64, 128)  # the head_dims of the served configs
+MAX_GROUP = 16             # query heads per KV head, kept in registers
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _ptr, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -40,13 +42,25 @@ def _library():
     if lib.flash_decode.argtypes is None:
         lib.flash_decode.argtypes = (
             [_ptr] * 8 + [_int] * 7 + [ctypes.c_float] + [_ll] * 6
-            + [_int, _int, _ptr])
+            + [_int, _int, _int, _ptr])
         lib.flash_decode.restype = _int
-        lib.flash_decode_smem_bytes.argtypes = [_int, _int]
-        lib.flash_decode_smem_bytes.restype = _ll
         lib.flash_decode_error_string.argtypes = [_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _splits(B: int, Hkv: int, L: int, sms: int):
+    """(n_split, chunk): L is cut into n_split spans of ``chunk`` rows
+    when B * Hkv blocks alone would leave SMs idle."""
+    n_split = max(1, min(-(-4 * sms // (B * Hkv)), -(-L // MIN_CHUNK)))
+    chunk = -(-L // n_split)
+    chunk = -(-chunk // ROWS_PER_PASS) * ROWS_PER_PASS
+    return -(-L // chunk), chunk
 
 
 def _check_shapes(q, k_cache, v_cache):
@@ -91,9 +105,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     a (B,) per-slot vector.  Returns (B, Hq, hd) in q's dtype.
 
     Raises ``ValueError`` when Hq is not a multiple of Hkv, when ``pos``
-    is neither a scalar nor (B,), and, on the card, for a dtype other
-    than float32 / bfloat16, mixed devices, a non-contiguous q or a
-    cache whose last axis is strided."""
+    is neither a scalar nor (B,), for mixed devices, and, on the card,
+    for a dtype other than float32 / bfloat16, a non-contiguous q, a
+    cache whose last axis is strided, or a head_dim / group width the
+    kernel was not built for (see ``HEAD_DIMS``)."""
     _check_shapes(q, k_cache, v_cache)
     B, Hq, hd = q.shape
     devices = {q.device, k_cache.device, v_cache.device}
@@ -117,19 +132,21 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("flash_decode needs caches with unit stride on "
                          "the head_dim axis")
 
-    lib = _library()
     L, Hkv = k_cache.shape[1], k_cache.shape[2]
-    smem = lib.flash_decode_smem_bytes(Hq // Hkv, hd)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a (G={Hq // Hkv}, hd={hd}) group needs {smem} B "
-                         f"of shared memory, above the {SMEM_LIMIT} B a "
-                         f"block may use")
-    # split L across blocks when B * Hkv blocks alone would leave SMs idle
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = max(1, min(-(-4 * sms // (B * Hkv)), -(-L // MIN_CHUNK)))
-    chunk = -(-L // n_split)
-    chunk = -(-chunk // TILE) * TILE
-    n_split = -(-L // chunk)
+    G = Hq // Hkv
+    if hd not in HEAD_DIMS or G > MAX_GROUP:
+        raise ValueError(
+            f"the CUDA flash_decode takes head_dim in {HEAD_DIMS} and at "
+            f"most {MAX_GROUP} query heads per KV head, so that a group's "
+            f"accumulators stay in registers; got head_dim={hd}, G={G}")
+    lib = _library()
+    n_split, chunk = _splits(B, Hkv, L, _sm_count(q.device.index))
+    # vector loads need every row of a lane's run aligned to its width
+    align = min(hd // 32 * k_cache.element_size(), 16)
+    vec = all(t.data_ptr() % align == 0
+              and all(st * t.element_size() % align == 0
+                      for st in t.stride()[:3])
+              for t in (k_cache, v_cache))
 
     out = torch.empty_like(q)
     m_part = l_part = acc_part = None
@@ -148,7 +165,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             pos_vec.data_ptr(), out.data_ptr(), ptr(m_part), ptr(l_part),
             ptr(acc_part), B, Hq, Hkv, hd, L, n_split, chunk, hd ** -0.5,
-            *k_cache.stride()[:3], *v_cache.stride()[:3],
+            *k_cache.stride()[:3], *v_cache.stride()[:3], int(vec),
             int(q.dtype == torch.bfloat16),
             int(k_cache.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)

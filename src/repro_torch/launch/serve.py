@@ -1,4 +1,4 @@
-"""Serving drivers of the port: batched greedy decode, and the
+"""Serving entry points of the port: batched greedy decode, and the
 continuous-batching slot loop.  The counterpart of
 ``repro/launch/serve.py``, with the same flags plus ``--device``.
 

@@ -107,13 +107,6 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Decode: one token against a (possibly ring-buffered) KV cache
 # --------------------------------------------------------------------------
 
-def init_kv_cache(batch: int, cache_len: int, num_kv_heads: int,
-                  head_dim: int, dtype=torch.float32, device=None) -> dict:
-    shape = (batch, cache_len, num_kv_heads, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
-
-
 def _check_cache_overflow(pos, cache_len: int) -> None:
     """Raise when a host-known prefix-cache position is past the end.
 

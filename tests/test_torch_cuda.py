@@ -25,7 +25,10 @@ TOLS = {torch.float32: dict(rtol=0.0, atol=1e-5),
         torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 SWEEP = [(1, 4, 1, 64, 256, 255), (2, 8, 2, 64, 700, 450),
          (2, 16, 2, 128, 1024, 100), (1, 8, 8, 64, 512, 511),
-         (3, 8, 4, 32, 384, 0)]
+         (3, 8, 4, 32, 384, 0),
+         # the widest groups the kernel takes at each head_dim
+         (2, 32, 2, 64, 300, 200), (1, 16, 1, 128, 500, 499),
+         (2, 16, 1, 32, 200, 150), (8, 24, 8, 128, 576, 400)]
 
 
 @pytest.fixture
@@ -82,6 +85,18 @@ def test_kernel_reads_strided_cache(cuda):
                                flash_decode_ref(q, k, v, pos), **TOLS[torch.float32])
 
 
+def test_kernel_reads_unaligned_cache(cuda):
+    """Rows that do not start on a vector boundary take the element-wise
+    load path."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    k = _rand(gen, 2, 100, 2, 65)[..., 1:]
+    v = _rand(gen, 2, 100, 2, 65)[..., :64]
+    q = _rand(gen, 2, 4, 64)
+    pos = torch.tensor([99, 40], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(flash_decode(q, k, v, pos),
+                               flash_decode_ref(q, k, v, pos), **TOLS[torch.float32])
+
+
 def test_kernel_rejects_bad_layouts(cuda):
     q = torch.zeros((2, 8, 64), device=cuda)
     k = torch.zeros((2, 64, 2, 64), device=cuda)
@@ -94,6 +109,12 @@ def test_kernel_rejects_bad_layouts(cuda):
         flash_decode(q, strided, k, 3)
     with pytest.raises(ValueError, match="devices"):
         flash_decode(q, k.cpu(), k.cpu(), 3)
+    for hd in (48, 256):
+        kh = torch.zeros((2, 64, 2, hd), device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_decode(torch.zeros((2, 8, hd), device=cuda), kh, kh, 3)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        flash_decode(torch.zeros((2, 64, 64), device=cuda), k, k, 3)
 
 
 def test_serve_loop_card_matches_cpu(cuda):
