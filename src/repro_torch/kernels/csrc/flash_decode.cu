@@ -12,14 +12,18 @@
 // 3.35 TB/s (H100 SXM), against 4 * sum_b min(pos_b + 1, L) * Hq * hd f32
 // operations, far below the card's f32 rate.  So the design keeps many
 // loads in flight and reads each cache byte once:
-//   * one thread block per (b, kv head, L split); when B * Hkv blocks would
-//     leave SMs idle the wrapper splits L, and a second pass combines the
-//     splits' (m, l, acc) partials.  A split that is entirely masked
-//     carries m = -1e30, l = 0, acc = 0 and drops out of the combine;
+//   * one thread block per (b, kv head, L split).  The wrapper cuts L into
+//     spans of at most 512 rows, and finer when B * Hkv * splits blocks
+//     would leave SMs idle, so that a long row is read by many SMs at once;
+//     a second pass combines the splits' (m, l, acc) partials.  A split
+//     that is entirely masked carries m = -1e30, l = 0, acc = 0 and drops
+//     out of the combine;
 //   * inside a block each warp streams its own cache rows, U rows at a time,
 //     with no block-wide barrier in the loop: lane i holds elements
 //     [i*D, i*D + D) of a row (D = hd / 32), loaded as one vector, so a
-//     warp reads a row as one contiguous transaction;
+//     warp reads a row as one contiguous transaction.  At most 128
+//     registers a thread let 4 blocks share an SM, for more loads in
+//     flight;
 //   * the G = Hq / Hkv query heads of the group share every K/V load: each
 //     warp keeps all G heads' running max, sum and accumulator in registers
 //     and scores each loaded row against every head;
@@ -36,7 +40,7 @@ namespace {
 
 constexpr int NWARPS = 4;
 constexpr int THREADS = NWARPS * 32;
-constexpr int U = 4;  // cache rows a warp loads before it computes
+constexpr int U = 2;  // cache rows a warp loads before it computes
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -54,34 +58,28 @@ template <> struct Word<2> { using type = unsigned short; };
 template <> struct Word<4> { using type = unsigned int; };
 template <> struct Word<8> { using type = uint2; };
 
-// D consecutive elements at p, as floats.  With `vec` the run is loaded in
-// words of up to 16 bytes (the wrapper checked the alignment), else element
-// by element.
+// D consecutive elements at p, as floats, loaded in words of up to 16
+// bytes (the wrapper checked that every row start is aligned to them).
 template <typename T, int D>
-__device__ __forceinline__ void load_run(const T* __restrict__ p, bool vec, float (&out)[D]) {
+__device__ __forceinline__ void load_run(const T* __restrict__ p, float (&out)[D]) {
   constexpr int BYTES = D * (int)sizeof(T);
   using W = typename Word<(BYTES < 16 ? BYTES : 16)>::type;
   constexpr int NW = BYTES / (int)sizeof(W);
-  if (vec) {
-    W w[NW];
+  W w[NW];
 #pragma unroll
-    for (int c = 0; c < NW; ++c) w[c] = reinterpret_cast<const W*>(p)[c];
-    const T* t = reinterpret_cast<const T*>(w);
+  for (int c = 0; c < NW; ++c) w[c] = reinterpret_cast<const W*>(p)[c];
+  const T* t = reinterpret_cast<const T*>(w);
 #pragma unroll
-    for (int i = 0; i < D; ++i) out[i] = to_f32(t[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < D; ++i) out[i] = to_f32(p[i]);
-  }
+  for (int i = 0; i < D; ++i) out[i] = to_f32(t[i]);
 }
 
 template <typename TQ, typename TKV, int D, int GM>
-__global__ void __launch_bounds__(THREADS) flash_decode_split(
+__global__ void __launch_bounds__(THREADS, 4) flash_decode_split(
     const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
     const int* __restrict__ pos, TQ* __restrict__ out, float* __restrict__ m_part,
     float* __restrict__ l_part, float* __restrict__ acc_part, int Hq, int Hkv, int L,
     int chunk, float scale, long long sk_b, long long sk_l, long long sk_h, long long sv_b,
-    long long sv_l, long long sv_h, int vec) {
+    long long sv_l, long long sv_h) {
   constexpr int HD = 32 * D;
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x;
@@ -118,8 +116,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_split(
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (t + u < l1) {
-        load_run<TKV, D>(kb + (long long)(t + u) * sk_l, vec, kf[u]);
-        load_run<TKV, D>(vb + (long long)(t + u) * sv_l, vec, vf[u]);
+        load_run<TKV, D>(kb + (long long)(t + u) * sk_l, kf[u]);
+        load_run<TKV, D>(vb + (long long)(t + u) * sv_l, vf[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < D; ++i) kf[u][i] = vf[u][i] = 0.f;
@@ -131,7 +129,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_split(
     for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
       float qg[D];
-      load_run<float, D>(q_sh + g * HD + lane * D, true, qg);
+      load_run<float, D>(q_sh + g * HD + lane * D, qg);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         float dot = 0.f;
@@ -245,7 +243,6 @@ struct Args {
   int B, Hq, Hkv, hd, L, n_split, chunk;
   float scale;
   long long sk_b, sk_l, sk_h, sv_b, sv_l, sv_h;
-  int vec;
   cudaStream_t stream;
 };
 
@@ -256,7 +253,7 @@ cudaError_t launch(const Args& a) {
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.pos, static_cast<TQ*>(a.out), a.m_part, a.l_part,
       a.acc_part, a.Hq, a.Hkv, a.L, a.chunk, a.scale, a.sk_b, a.sk_l, a.sk_h, a.sv_b, a.sv_l,
-      a.sv_h, a.vec);
+      a.sv_h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return err;
   flash_decode_combine<TQ><<<(unsigned)a.B * a.Hq, THREADS, 0, a.stream>>>(
@@ -295,18 +292,18 @@ extern "C" {
 // 64, 128 or a group wider than 16 query heads).  Pointers are
 // device pointers; q and out are contiguous (B, Hq, hd); k and v are
 // (B, L, Hkv, hd) with unit stride on the last axis and the given element
-// strides on the others; pos is (B,) int32.  `vec` says every cache row
-// start is aligned for vector loads.  The partial buffers hold
+// strides on the others, every row start aligned to min(hd / 32 elements,
+// 16 bytes); pos is (B,) int32.  The partial buffers hold
 // B * Hq * n_split (m, l) and B * Hq * n_split * hd (acc) floats and are
 // unused when n_split == 1.  `chunk` is the L span of one split.
 int flash_decode(const void* q, const void* k, const void* v, const int* pos, void* out,
                  float* m_part, float* l_part, float* acc_part, int B, int Hq, int Hkv,
                  int hd, int L, int n_split, int chunk, float scale, long long sk_b,
                  long long sk_l, long long sk_h, long long sv_b, long long sv_l,
-                 long long sv_h, int vec, int q_bf16, int kv_bf16, void* stream) {
-  const Args a{q,  k,   v,     pos,  out,  m_part, l_part, acc_part, B,    Hq,
-               Hkv, hd, L,     n_split, chunk, scale, sk_b, sk_l,     sk_h, sv_b,
-               sv_l, sv_h, vec, static_cast<cudaStream_t>(stream)};
+                 long long sv_h, int q_bf16, int kv_bf16, void* stream) {
+  const Args a{q,    k,    v,    pos,  out,  m_part, l_part, acc_part,
+               B,    Hq,   Hkv,  hd,   L,    n_split, chunk, scale,
+               sk_b, sk_l, sk_h, sv_b, sv_l, sv_h,   static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (q_bf16 && kv_bf16) err = launch_d<__nv_bfloat16, __nv_bfloat16>(a);
   else if (q_bf16) err = launch_d<__nv_bfloat16, float>(a);

@@ -27,8 +27,9 @@ import torch
 
 from .ref import flash_decode_ref
 
-ROWS_PER_PASS = 16         # cache rows a block loads per pass (4 warps x 4)
+ROWS_PER_PASS = 8          # cache rows a block loads per pass (4 warps x 2)
 MIN_CHUNK = 64             # fewest cache rows one L split covers
+MAX_CHUNK = 512            # most cache rows one L split covers
 HEAD_DIMS = (32, 64, 128)  # the head_dims of the served configs
 MAX_GROUP = 16             # query heads per KV head, kept in registers
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -42,7 +43,7 @@ def _library():
     if lib.flash_decode.argtypes is None:
         lib.flash_decode.argtypes = (
             [_ptr] * 8 + [_int] * 7 + [ctypes.c_float] + [_ll] * 6
-            + [_int, _int, _int, _ptr])
+            + [_int, _int, _ptr])
         lib.flash_decode.restype = _int
         lib.flash_decode_error_string.argtypes = [_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -55,9 +56,11 @@ def _sm_count(device_index: int) -> int:
 
 
 def _splits(B: int, Hkv: int, L: int, sms: int):
-    """(n_split, chunk): L is cut into n_split spans of ``chunk`` rows
-    when B * Hkv blocks alone would leave SMs idle."""
-    n_split = max(1, min(-(-4 * sms // (B * Hkv)), -(-L // MIN_CHUNK)))
+    """(n_split, chunk): L is cut into n_split spans of ``chunk`` rows,
+    at most MAX_CHUNK long, and shorter (down to MIN_CHUNK) when
+    B * Hkv * n_split blocks would leave SMs idle."""
+    n_split = max(-(-4 * sms // (B * Hkv)), -(-L // MAX_CHUNK))
+    n_split = max(1, min(n_split, -(-L // MIN_CHUNK)))
     chunk = -(-L // n_split)
     chunk = -(-chunk // ROWS_PER_PASS) * ROWS_PER_PASS
     return -(-L // chunk), chunk
@@ -107,8 +110,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     Raises ``ValueError`` when Hq is not a multiple of Hkv, when ``pos``
     is neither a scalar nor (B,), for mixed devices, and, on the card,
     for a dtype other than float32 / bfloat16, a non-contiguous q, a
-    cache whose last axis is strided, or a head_dim / group width the
-    kernel was not built for (see ``HEAD_DIMS``)."""
+    cache whose last axis is strided or whose rows do not start on the
+    kernel's load width, or a head_dim / group width the kernel was not
+    built for (see ``HEAD_DIMS``)."""
     _check_shapes(q, k_cache, v_cache)
     B, Hq, hd = q.shape
     devices = {q.device, k_cache.device, v_cache.device}
@@ -139,14 +143,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             f"the CUDA flash_decode takes head_dim in {HEAD_DIMS} and at "
             f"most {MAX_GROUP} query heads per KV head, so that a group's "
             f"accumulators stay in registers; got head_dim={hd}, G={G}")
+    # each lane loads hd / 32 elements of a row in words of up to 16 bytes
+    align = min(hd // 32 * k_cache.element_size(), 16)
+    for t in (k_cache, v_cache):
+        if t.data_ptr() % align or any(st * t.element_size() % align
+                                       for st in t.stride()[:3]):
+            raise ValueError(f"flash_decode needs cache rows that start on "
+                             f"{align}-byte boundaries")
     lib = _library()
     n_split, chunk = _splits(B, Hkv, L, _sm_count(q.device.index))
-    # vector loads need every row of a lane's run aligned to its width
-    align = min(hd // 32 * k_cache.element_size(), 16)
-    vec = all(t.data_ptr() % align == 0
-              and all(st * t.element_size() % align == 0
-                      for st in t.stride()[:3])
-              for t in (k_cache, v_cache))
 
     out = torch.empty_like(q)
     m_part = l_part = acc_part = None
@@ -165,7 +170,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             pos_vec.data_ptr(), out.data_ptr(), ptr(m_part), ptr(l_part),
             ptr(acc_part), B, Hq, Hkv, hd, L, n_split, chunk, hd ** -0.5,
-            *k_cache.stride()[:3], *v_cache.stride()[:3], int(vec),
+            *k_cache.stride()[:3], *v_cache.stride()[:3],
             int(q.dtype == torch.bfloat16),
             int(k_cache.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)

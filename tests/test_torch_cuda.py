@@ -85,18 +85,6 @@ def test_kernel_reads_strided_cache(cuda):
                                flash_decode_ref(q, k, v, pos), **TOLS[torch.float32])
 
 
-def test_kernel_reads_unaligned_cache(cuda):
-    """Rows that do not start on a vector boundary take the element-wise
-    load path."""
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    k = _rand(gen, 2, 100, 2, 65)[..., 1:]
-    v = _rand(gen, 2, 100, 2, 65)[..., :64]
-    q = _rand(gen, 2, 4, 64)
-    pos = torch.tensor([99, 40], dtype=torch.int32, device=cuda)
-    torch.testing.assert_close(flash_decode(q, k, v, pos),
-                               flash_decode_ref(q, k, v, pos), **TOLS[torch.float32])
-
-
 def test_kernel_rejects_bad_layouts(cuda):
     q = torch.zeros((2, 8, 64), device=cuda)
     k = torch.zeros((2, 64, 2, 64), device=cuda)
@@ -109,6 +97,9 @@ def test_kernel_rejects_bad_layouts(cuda):
         flash_decode(q, strided, k, 3)
     with pytest.raises(ValueError, match="devices"):
         flash_decode(q, k.cpu(), k.cpu(), 3)
+    unaligned = torch.zeros((2, 64, 2, 65), device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="boundaries"):
+        flash_decode(q, unaligned, unaligned, 3)
     for hd in (48, 256):
         kh = torch.zeros((2, 64, 2, hd), device=cuda)
         with pytest.raises(ValueError, match="head_dim"):

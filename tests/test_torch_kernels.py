@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.ref import flash_decode_ref as jax_flash_decode_ref
+from repro_torch.kernels import flash_decode as fd_module
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.ref import flash_decode_ref
 
@@ -112,6 +113,19 @@ def test_flash_decode_rejects_bad_inputs():
         flash_decode(q8, k, k, torch.zeros((3,), dtype=torch.int32))
     with pytest.raises(ValueError, match="shape"):
         flash_decode(q8, k, k[:, :, :, :8], 3)
+
+
+@pytest.mark.parametrize("B,Hkv,L", [(16, 8, 32768), (8, 8, 576), (1, 1, 256),
+                                     (5, 2, 700), (1, 8, 40), (64, 8, 100)])
+def test_flash_decode_splits_cover_the_cache(B, Hkv, L):
+    """The CUDA launch's L spans: every cache row in exactly one span,
+    spans of whole passes of the block, at most MAX_CHUNK rows, and no
+    more spans than MIN_CHUNK-row pieces of L."""
+    n_split, chunk = fd_module._splits(B, Hkv, L, sms=132)
+    assert (n_split - 1) * chunk < L <= n_split * chunk
+    assert chunk % fd_module.ROWS_PER_PASS == 0
+    assert chunk <= fd_module.MAX_CHUNK
+    assert n_split <= -(-L // fd_module.MIN_CHUNK)
 
 
 def test_ref_empty_row_exact_zero():
