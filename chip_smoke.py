@@ -82,7 +82,7 @@ def device_ms(torch, calls, reps: int) -> float:
 
 
 def host_ms(torch, fn, iters: int) -> float:
-    """Mean wall time of one call of ``fn`` issued back to back."""
+    """Mean wall time of one call of ``fn`` called back to back."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
