@@ -39,8 +39,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-DECODE_TOL = {"float32": dict(rtol=0.0, atol=1e-5),
-              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 SWEEP = [(1, 4, 1, 64, 256, 255), (2, 8, 2, 64, 700, 450),
          (2, 16, 2, 128, 1024, 100), (1, 8, 8, 64, 512, 511),
          (3, 8, 4, 32, 384, 0)]
@@ -49,6 +47,19 @@ SWEEP = [(1, 4, 1, 64, 256, 255), (2, 8, 2, 64, 700, 450),
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def decode_tol(ref) -> dict:
+    """The limit for flash_decode against its plain version, by the
+    output's dtype.  f32: 1e-5.  bf16: both sides accumulate in f32 and
+    round once to bf16, which can move an element by one bf16 step (at
+    most 2^-7 of it), so rtol 1e-2, and for elements near 0 an atol of
+    1e-2 x max |ref|.  The atol scales with the output because the output
+    over n valid N(0, 1) rows is small (about sqrt(e / n)): a fixed atol
+    would pass a lost span of the cache."""
+    if ref.dtype.itemsize == 4:
+        return dict(rtol=0.0, atol=1e-5)
+    return dict(rtol=1e-2, atol=1e-2 * ref.float().abs().max().item())
 
 
 def card_line() -> str:
@@ -108,19 +119,22 @@ def decode_bound(q, k, pos_list, L):
 
 def measure_decode(torch, F, q, caches, pos, reps):
     """flash_decode against flash_decode_ref on the card over each (k, v)
-    of ``caches``: the worst error, the empty rows, and the kernel, plain,
-    bound and library times of one call (``reps`` passes over the caches
-    for the kernel, a tenth of that for the others)."""
+    of ``caches``, held to :func:`decode_tol`: the worst error, the
+    largest |ref|, the empty rows, and the kernel, plain, bound and
+    library times of one call (``reps`` passes over the caches for the
+    kernel, a tenth of that for the others)."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.ref import flash_decode_ref
     B, L = q.shape[0], caches[0][0].shape[1]
     pos_list = pos.tolist()
     empty = [b for b in range(B) if pos_list[b] < 0]
-    err = 0.0
+    err = ref_max = 0.0
     for k, v in caches:
         out = flash_decode(q, k, v, pos)
         ref = flash_decode_ref(q, k, v, pos)
+        torch.testing.assert_close(out.float(), ref.float(), **decode_tol(ref))
         err = max(err, (out.float() - ref.float()).abs().max().item())
+        ref_max = max(ref_max, ref.float().abs().max().item())
         check(all(bool((out[b] == 0).all()) for b in empty),
               "an empty row of flash_decode is not exactly 0")
     # the library yardstick: one SDPA call with a boolean mask (the port
@@ -139,7 +153,7 @@ def measure_decode(torch, F, q, caches, pos, reps):
     kernel_calls = [call(flash_decode, k, v) for k, v in caches]
     few = max(1, reps // 10)
     bound_ms, bound_by = decode_bound(q, caches[0][0], pos_list, L)
-    return {"max_abs_err": err, "empty_rows": len(empty),
+    return {"max_abs_err": err, "ref_max": ref_max, "empty_rows": len(empty),
             "ms": device_ms(torch, kernel_calls, reps),
             "host_ms": host_ms(torch, kernel_calls[0], 100),
             "plain_ms": device_ms(torch, [call(flash_decode_ref, k, v)
@@ -169,13 +183,13 @@ def phase_kernels(torch, F, card):
             k, v = randn(B, L, Hkv, hd, dtype=dtype), randn(B, L, Hkv, hd, dtype=dtype)
             pos = pos.to(device="cuda", dtype=torch.int32)
             out, ref = flash_decode(q, k, v, pos), flash_decode_ref(q, k, v, pos)
-            torch.testing.assert_close(out.float(), ref.float(), **DECODE_TOL[name])
+            torch.testing.assert_close(out.float(), ref.float(), **decode_tol(ref))
             for b in (pos < 0).nonzero().flatten().tolist():
                 check(bool((out[b] == 0).all()), "empty row not exactly 0")
             worst[name] = max(worst[name], (out.float() - ref.float()).abs().max().item())
     print(f"kernels: flash_decode on the test cases: max abs err f32 "
           f"{worst['float32']:.3e} (tol 1e-5), bf16 {worst['bfloat16']:.3e} "
-          f"(tol 2e-2 + 2e-2 |ref|); empty rows exactly 0")
+          f"(tol 1e-2 x max|ref| + 1e-2 |ref|); empty rows exactly 0")
 
     # the decode_32k width: B=16, Hq=24, Hkv=8, hd=128, L=32768, bf16
     B, Hq, Hkv, hd, L = 16, 24, 8, 128, 32768
@@ -186,11 +200,9 @@ def phase_kernels(torch, F, card):
                         dtype=torch.int32)
     pos[3], pos[11], pos[0] = -1, -1, L - 1
     m = measure_decode(torch, F, q, [(k, v)], pos, 20)
-    torch.testing.assert_close(
-        flash_decode(q, k, v, pos).float(),
-        flash_decode_ref(q, k, v, pos).float(), **DECODE_TOL["bfloat16"])
     print(f"kernels: flash_decode bf16 (16, 24, 128) x (16, 32768, 8, 128), "
-          f"{m['empty_rows']} empty rows: max abs err {m['max_abs_err']:.3e}; "
+          f"{m['empty_rows']} empty rows: max abs err {m['max_abs_err']:.3e} "
+          f"(tol {1e-2 * m['ref_max']:.3e} = 1e-2 x max|ref| + 1e-2 |ref|); "
           f"device time per call: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
           f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}), "
           f"SDPA {m['library_ms']:.4f} ms; wall per kernel call "
@@ -352,10 +364,9 @@ def phase_slice(torch, F, card):
     caches = [(loop.cache["k"][i], loop.cache["v"][i])
               for i in range(cfg.num_layers)]
     m = measure_decode(torch, F, q, caches, loop.cache["pos"], 10)
-    check(m["max_abs_err"] <= 1e-5, f"flash_decode err {m['max_abs_err']}")
     print(f"slice: flash_decode f32 at the slice's shape (8, 24, 128) x "
           f"(8, 576, 8, 128), the {cfg.num_layers} layers' caches in turn: "
-          f"max abs err {m['max_abs_err']:.3e}; device time per call: kernel "
+          f"max abs err {m['max_abs_err']:.3e} (tol 1e-5); device time per call: kernel "
           f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
           f"{m['bound_ms']:.4f} ms ({m['bound_by']}), SDPA "
           f"{m['library_ms']:.4f} ms; wall per kernel call "

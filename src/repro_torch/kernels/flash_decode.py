@@ -27,7 +27,6 @@ import torch
 
 from .ref import flash_decode_ref
 
-ROWS_PER_PASS = 8          # cache rows a block loads per pass (4 warps x 2)
 MIN_CHUNK = 64             # fewest cache rows one L split covers
 MAX_CHUNK = 512            # most cache rows one L split covers
 HEAD_DIMS = (32, 64, 128)  # the head_dims of the served configs
@@ -62,7 +61,6 @@ def _splits(B: int, Hkv: int, L: int, sms: int):
     n_split = max(-(-4 * sms // (B * Hkv)), -(-L // MAX_CHUNK))
     n_split = max(1, min(n_split, -(-L // MIN_CHUNK)))
     chunk = -(-L // n_split)
-    chunk = -(-chunk // ROWS_PER_PASS) * ROWS_PER_PASS
     return -(-L // chunk), chunk
 
 

@@ -5,19 +5,15 @@ One :class:`Telemetry` instance is a bag of named instruments plus an
 append-only event log.  Every runtime layer reports into whichever bus
 it was handed (or the process-global default, see :func:`get_telemetry`)
 **host-side only**: instruments are plain Python dict/float updates at
-step and swap boundaries, never inside jitted code, so enabling
-telemetry cannot change trace behavior, fusion, or the zero-retrace
-guarantees of :mod:`repro.runtime` / :mod:`repro.overlay`.
+tick boundaries, never between a tick's device launches, so enabling
+telemetry adds no device work and no synchronisation.
 
 Disabled-by-default guarantee
 -----------------------------
 The global bus starts as :data:`NULL`, a no-op singleton whose methods
 do nothing and allocate nothing (``enabled = False``).  Instrumented
-code either calls the no-op methods directly (~a method call per round)
-or guards bigger argument construction behind ``bus.enabled`` — both
-are far below measurement noise per training step, and the telemetry
-overhead benchmark (``benchmarks/slot_runtime``) gates the end-to-end
-cost at < 2% of steps/s.
+code either calls the no-op methods directly (~a method call per tick)
+or guards bigger argument construction behind ``bus.enabled``.
 
 Clock
 -----
@@ -89,19 +85,18 @@ class Histogram:
 class Telemetry:
     """A live telemetry bus.
 
-    * :meth:`count` — monotone counters (``"overlay.cache_hits"``);
-    * :meth:`gauge` — last-write-wins values (``"slot.num_alive"``);
-    * :meth:`observe` — histogram samples (``"overlay.rebuild_ms"``);
+    * :meth:`count` — monotone counters (``"serve.completed"``);
+    * :meth:`gauge` — last-write-wins values (``"serve.occupancy"``);
+    * :meth:`observe` — histogram samples;
     * :meth:`event` — timestamped structured events;
     * :meth:`span` — a context manager timing a host-side block, which
       feeds both a ``<name>.ms`` histogram and (optionally) an event.
 
     Naming convention: ``<layer>.<signal>`` with ``_ms`` / ``_bytes``
-    suffixes on units — the round ledger (:mod:`repro.obs.rounds`)
-    joins counter *deltas* per round by these names, and
-    ``benchmarks/run.py`` snapshots :meth:`summary` into BENCH JSON.
-    Adding a new signal is one call at a step/swap boundary; no schema
-    registration needed.
+    suffixes on units — the round ledger (:mod:`repro_torch.obs.rounds`)
+    joins counter *deltas* per round by these names.  Adding a new
+    signal is one call at a tick boundary; no schema registration
+    needed.
     """
 
     enabled = True

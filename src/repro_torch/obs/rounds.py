@@ -1,81 +1,41 @@
-"""The per-round ledger: one joined record per training round.
+"""The per-round ledger: one record per serving tick.
 
-Control-plane signals (schedule rebuilds, mixer hot-swaps, MixerCache
-hit/miss, churn membership, repair and commit latency) and data-plane
-facts (wire/payload bytes per client from the
-:func:`repro.dist.sync.sync_bytes_per_client` closed forms, retrace
-deltas from :class:`repro.runtime.loop.TraceCount`, masked loss and
-participation) land in a single :class:`RoundRecord` per round, emitted
-by whichever loop is driving training (:class:`~repro.runtime.loop.
-SlotTrainLoop`, :class:`~repro.overlay.runtime.ChurnTrainLoop`,
-:class:`~repro.scale.cohort.CohortStreamLoop`, or
-:class:`~repro.core.dfl.Engine`).
+:class:`~repro_torch.runtime.serving.ServeLoop` emits one
+:class:`RoundRecord` per tick onto the ambient ledger (see
+:func:`round_ledger`), with the slot occupancy and, under ``extra``, the
+tick's admissions, completions, evictions and queue depth.
 
-A ledger can additionally be bound to a :class:`~repro.obs.events.
+A ledger can additionally be bound to a :class:`~repro_torch.obs.events.
 Telemetry` bus, in which case every record also carries the bus's
 counter *deltas* since the previous record — ad-hoc counters added
 anywhere in the stack show up per round with no ledger changes.
 
-Export: :meth:`RoundLedger.to_jsonl` (one JSON object per line, the
-``--telemetry-out`` format of ``launch/train.py``) and
-:meth:`RoundLedger.summary_table` (the terminal table
-``examples/quickstart.py`` prints).
+The port of ``repro/obs/rounds.py``, cut to the fields the serving loop
+records; the training loops' fields arrive with the training slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional
 
 from .events import Telemetry, get_telemetry
 
 
 @dataclasses.dataclass
 class RoundRecord:
-    """One training round, control plane joined with data plane.
-
-    ``wire_bytes_per_client`` is what actually crosses links under the
-    active codec; ``payload_bytes_per_client`` is the same traffic in
-    uncompressed model bytes (their ratio is the codec's wire
-    reduction).  ``retrace_delta`` is the number of fresh XLA traces
-    this round — 0 after warmup is the zero-retrace guarantee, observed
-    live.  ``repair_ms`` is the host-side schedule rebuild triggered by
-    NDMP repair/churn (0 on quiescent rounds); ``commit_ms`` times the
-    staged-swap commit at the step boundary.
-
-    ``faults_injected`` counts the :mod:`repro.faults` injections
-    (drops/delays/dups/crashes/partition events) that landed during the
-    round; ``degraded_edges`` is how many directed data-plane edges the
-    round's unreachable-edge mask zeroed — together they show what was
-    injected vs. what the round actually had to survive."""
+    """One round: its index, the loop that drove it, how many slots
+    were occupied, and everything else under ``extra``."""
 
     round: int
     loop: str
-    time: float = 0.0
     num_alive: int = 0
     participating: int = 0
-    loss: float = float("nan")
-    wire_bytes_per_client: float = 0.0
-    payload_bytes_per_client: float = 0.0
-    retraces: int = 0
-    retrace_delta: int = 0
-    swapped: bool = False
-    rebuilt: bool = False
-    cache_hit: bool = False
-    joined: Tuple[int, ...] = ()
-    left: Tuple[int, ...] = ()
-    repair_ms: float = 0.0
-    commit_ms: float = 0.0
-    faults_injected: int = 0
-    degraded_edges: int = 0
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def to_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
-        d["joined"] = list(self.joined)
-        d["left"] = list(self.left)
         extra = d.pop("extra")
         for k, v in extra.items():
             d.setdefault(k, v)
@@ -91,8 +51,8 @@ class RoundLedger:
     ``bus`` (default: the process-global telemetry bus) supplies counter
     deltas: each :meth:`record` call diffs the bus's counters against
     the snapshot taken at the previous record and stores the non-zero
-    deltas in the record's ``extra`` — so e.g. ``overlay.cache_misses``
-    incremented during round k shows up on round k's row."""
+    deltas in the record's ``extra`` — so e.g. ``serve.evictions``
+    incremented during tick k shows up on tick k's row."""
 
     def __init__(self, bus: Optional[Telemetry] = None):
         self.bus = bus
@@ -126,95 +86,12 @@ class RoundLedger:
     def __len__(self) -> int:
         return len(self.rows)
 
-    # ---- export ----------------------------------------------------------
-    def rows_as_dicts(self) -> List[Dict[str, Any]]:
-        return [r.to_dict() for r in self.rows]
-
-    def to_jsonl(self, path) -> int:
-        """Write one JSON object per round (strict JSON: NaN losses
-        become null); returns the row count."""
-        with open(path, "w") as fh:
-            for row in self.rows:
-                d = {k: (None if isinstance(v, float) and v != v else v)
-                     for k, v in row.to_dict().items()}
-                fh.write(json.dumps(d, sort_keys=True,
-                                    default=_jsonable) + "\n")
-        return len(self.rows)
-
     def summary(self) -> Dict[str, Any]:
-        """Whole-run aggregates (the shape benchmarks embed in their
-        BENCH JSON next to the per-round rows)."""
+        """Whole-run aggregates."""
         if not self.rows:
             return {"rounds": 0}
-        rows = self.rows
-        n = len(rows)
-        wire = sum(r.wire_bytes_per_client for r in rows)
-        payload = sum(r.payload_bytes_per_client for r in rows)
-        losses = [r.loss for r in rows if r.loss == r.loss]  # drop NaN
-        out = {
-            "rounds": n,
-            "loop": rows[-1].loop,
-            "final_loss": losses[-1] if losses else None,
-            "num_alive_last": rows[-1].num_alive,
-            "retraces": rows[-1].retraces,
-            "swaps": sum(1 for r in rows if r.swapped),
-            "rebuilds": sum(1 for r in rows if r.rebuilt),
-            "cache_hits": sum(1 for r in rows if r.cache_hit),
-            "joins": sum(len(r.joined) for r in rows),
-            "leaves": sum(len(r.left) for r in rows),
-            "wire_mb_per_client": round(wire / 1e6, 6),
-            "payload_mb_per_client": round(payload / 1e6, 6),
-            "repair_ms_total": round(sum(r.repair_ms for r in rows), 3),
-            "commit_ms_total": round(sum(r.commit_ms for r in rows), 3),
-        }
-        if wire and payload:
-            out["wire_reduction"] = round(payload / wire, 3)
-        return out
-
-    def summary_table(self) -> str:
-        """A terminal-friendly table of the run (header + aligned rows,
-        capped at the last 20 rounds, plus a totals footer)."""
-        cols = ("round", "alive", "part", "loss", "wire_kb", "retr",
-                "swap", "hit", "repair_ms", "commit_ms", "churn")
-        lines = [self._fmt_row(cols)]
-        lines.append(self._fmt_row(("-" * len(c) for c in cols)))
-        shown = self.rows[-20:]
-        if len(self.rows) > len(shown):
-            lines.append(f"  ... {len(self.rows) - len(shown)} earlier "
-                         "rounds elided ...")
-        for r in shown:
-            churn = ""
-            if r.joined:
-                churn += f"+{len(r.joined)}"
-            if r.left:
-                churn += f"-{len(r.left)}"
-            lines.append(self._fmt_row((
-                r.round, r.num_alive, r.participating,
-                f"{r.loss:.4f}" if r.loss == r.loss else "-",
-                f"{r.wire_bytes_per_client / 1e3:.1f}",
-                r.retrace_delta, "*" if r.swapped else "",
-                "*" if r.cache_hit else "",
-                f"{r.repair_ms:.2f}", f"{r.commit_ms:.2f}", churn)))
-        s = self.summary()
-        lines.append("")
-        lines.append(
-            f"rounds={s.get('rounds', 0)} retraces={s.get('retraces', 0)} "
-            f"swaps={s.get('swaps', 0)} cache_hits={s.get('cache_hits', 0)} "
-            f"joins={s.get('joins', 0)} leaves={s.get('leaves', 0)} "
-            f"wire_mb/client={s.get('wire_mb_per_client', 0)}")
-        return "\n".join(lines)
-
-    @staticmethod
-    def _fmt_row(cells) -> str:
-        widths = (5, 5, 4, 9, 9, 4, 4, 3, 9, 9, 6)
-        return "  ".join(str(c).rjust(w) for c, w in zip(cells, widths))
-
-
-def _jsonable(obj):
-    try:
-        return float(obj)
-    except Exception:
-        return str(obj)
+        return {"rounds": len(self.rows), "loop": self.rows[-1].loop,
+                "num_alive_last": self.rows[-1].num_alive}
 
 
 # ---- process-global ledger (mirrors the global telemetry bus) ------------
@@ -224,7 +101,7 @@ _LEDGER: Optional[RoundLedger] = None
 
 def get_round_ledger() -> Optional[RoundLedger]:
     """The process-global ledger, or None (the default — loops only pay
-    ledger bookkeeping when one is installed or passed explicitly)."""
+    ledger bookkeeping when one is installed)."""
     return _LEDGER
 
 
@@ -245,17 +122,3 @@ def round_ledger(ledger: Optional[RoundLedger] = None
         yield ledger
     finally:
         set_round_ledger(prev)
-
-
-@contextmanager
-def disabled() -> Iterator[None]:
-    """Force the fully-disabled state (NULL bus, no global ledger) for
-    the ``with`` body — the control arm of overhead measurements."""
-    from .events import set_telemetry
-    prev_bus = set_telemetry(None)
-    prev_ledger = set_round_ledger(None)
-    try:
-        yield
-    finally:
-        set_telemetry(prev_bus)
-        set_round_ledger(prev_ledger)

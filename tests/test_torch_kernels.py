@@ -119,11 +119,10 @@ def test_flash_decode_rejects_bad_inputs():
                                      (5, 2, 700), (1, 8, 40), (64, 8, 100)])
 def test_flash_decode_splits_cover_the_cache(B, Hkv, L):
     """The CUDA launch's L spans: every cache row in exactly one span,
-    spans of whole passes of the block, at most MAX_CHUNK rows, and no
-    more spans than MIN_CHUNK-row pieces of L."""
+    at most MAX_CHUNK rows, and no more spans than MIN_CHUNK-row pieces
+    of L."""
     n_split, chunk = fd_module._splits(B, Hkv, L, sms=132)
     assert (n_split - 1) * chunk < L <= n_split * chunk
-    assert chunk % fd_module.ROWS_PER_PASS == 0
     assert chunk <= fd_module.MAX_CHUNK
     assert n_split <= -(-L // fd_module.MIN_CHUNK)
 
