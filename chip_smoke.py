@@ -8,18 +8,29 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` first.
 Phases, each printing its lines:
 
 1. environment: torch and CUDA versions, TF32 settings, the card;
-2. build: every kernel of the serving path, with ``nvcc``, timed;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   at the CPU tests' shapes and at the ``decode_32k`` width, with times;
+2. build: every kernel of the port (``flash_decode``, ``gather_mix``),
+   one ``nvcc`` per source, all started together, timed;
+3. kernels: each kernel against its plain PyTorch version on the card:
+   ``flash_decode`` at the CPU tests' shapes and at the ``decode_32k``
+   width, with times; ``gather_mix`` over f32 and bf16, C from 2 to 200,
+   ragged N, duplicate and tensor sources, and an output that is the
+   input;
 4. small: the ``tiny_lm`` ``ServeLoop`` on the card against the same on
-   the CPU, token for token;
+   the CPU, token for token, and the ``tiny_lm`` ``SlotTrainLoop`` with a
+   fail and a join on the card against the same on the CPU (alive
+   sequence equal, losses within 1e-4 relative);
 5. slice: ``run_slots`` serving Llama-3.2-3B at full width and depth
    (random f32 weights from a seeded generator), with the launch counts
    of the kernels, then one ``decode_step`` with the kernel against the
    same with the plain attention, a breakdown of one decode tick and one
    prefill (host time against device busy time), and the kernel at the
    slice's shape;
-6. the ``kernels`` JSON line, the card's name and power limit, and the
+6. train: the DFL round, ``SlotTrainLoop`` over Llama-3.2-3B at full
+   width with its depth cut to what fits (8 slots, 7 live, a fail and a
+   join, sgd, fedlay mixing through ``gather_mix``), with its checks,
+   per-round times, a profiled round, and the kernel at the round's
+   shape against its plain version and ``torch.matmul``;
+7. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result
@@ -30,6 +41,8 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -286,6 +299,7 @@ def phase_slice(torch, F, card):
     from repro_torch.configs import REGISTRY
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.gather_mix import gather_mix
     from repro_torch.kernels.ref import flash_decode_ref
     from repro_torch.launch.serve import run_slots
     from repro_torch.models import attention
@@ -309,15 +323,16 @@ def phase_slice(torch, F, card):
               np.random.default_rng(1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_decode.launches = 0
+    flash_decode.launches = gather_mix.launches = 0
     res = run_slots(cfg, model, args, np.random.default_rng(0))
-    launches = flash_decode.launches
+    launches, mixes = flash_decode.launches, gather_mix.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = res["counters"].get("serve.decode_steps", 0)
     check(res["requests"] == args.requests, "not every request completed")
     check(launches > 0 and launches == cfg.num_layers * steps,
           f"flash_decode launches {launches} != {cfg.num_layers} x "
           f"{steps} decode steps")
+    check(mixes == 0, f"serving launched gather_mix {mixes} times")
     print(f"slice: {res['requests']} requests, {res['tokens']} tokens in "
           f"{res['wall_s']:.3f} s: {res['tok_s']:.1f} tok/s, p50 "
           f"{res['p50_ms']:.1f} ms, p99 {res['p99_ms']:.1f} ms, peak memory "
@@ -380,6 +395,345 @@ def phase_slice(torch, F, card):
             "library_ms": m["library_ms"]}
 
 
+# --------------------------------------------------------------------------
+# The DFL training round
+# --------------------------------------------------------------------------
+
+TRAIN_CAPACITY, TRAIN_LIVE, TRAIN_SEQ, TRAIN_ROUNDS = 8, 7, 1024, 6
+TRAIN_CHURN = [(1.5, "fail", 3), (3.5, "join", 70, 0)]
+CHUNK = 1 << 24            # columns per chunk when the plain version runs
+
+
+def mix_tol(buf) -> dict:
+    """The limit for gather_mix against its plain version.  f32: 1e-6 x
+    max|buf| (rows of weights that sum to 1, a few f32 roundings of
+    terms no larger than max|buf|).  bf16: both round the same f32 sum
+    once, which can move an element by one bf16 step (2^-7 of it), plus
+    the f32 part for elements near 0."""
+    scale = buf.float().abs().max().item()
+    if buf.dtype.itemsize == 4:
+        return dict(rtol=0.0, atol=1e-6 * scale)
+    return dict(rtol=2 ** -7, atol=1e-6 * scale)
+
+
+def mix_table(torch, gen, C, K1):
+    """A (C, K1) table: column 0 self, the rest random sources with a
+    duplicate in every other row; row weights summing to 1."""
+    srcs = torch.randint(0, C, (C, K1), generator=gen, device="cuda")
+    srcs[:, 0] = torch.arange(C, device="cuda")
+    srcs[::2, 2 % K1] = srcs[::2, 1 % K1]
+    w = torch.rand((C, K1), generator=gen, device="cuda")
+    return srcs, w / w.sum(dim=1, keepdim=True)
+
+
+def check_gather_mix(torch):
+    """gather_mix against gather_mix_ref on the card, held to mix_tol:
+    f32 and bf16, C from 2 to 200 (registers up to 32, a shared-memory
+    tile above), ragged N, numpy and tensor sources, an output that is
+    the input."""
+    from repro_torch.kernels.gather_mix import gather_mix
+    from repro_torch.kernels.ref import gather_mix_ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        worst[name] = 0.0
+        for C, N in [(2, 1), (3, 130), (8, 4096), (8, 1001), (16, 2050),
+                     (32, 777), (33, 4096), (64, 3001), (200, 1000)]:
+            buf = torch.randn((C, N), generator=gen, device="cuda").to(dtype)
+            srcs, w = mix_table(torch, gen, C, 5)
+            ref = gather_mix_ref(buf, srcs, w)
+            for s in (srcs, srcs.cpu().numpy()):
+                out = gather_mix(buf, s, w)
+                torch.testing.assert_close(out.float(), ref.float(), **mix_tol(buf))
+                worst[name] = max(worst[name], (out.float() - ref.float()).abs().max().item())
+            inplace = buf.clone()
+            check(gather_mix(inplace, srcs, w, out=inplace) is inplace,
+                  "gather_mix did not return its out buffer")
+            check(torch.equal(inplace, out), "gather_mix in place differs")
+    torch.cuda.synchronize()
+    print(f"kernels: gather_mix on C in 2..200, ragged N, numpy and tensor "
+          f"sources, in place: max abs err f32 {worst['float32']:.3e} (tol 1e-6 x "
+          f"max|buf|), bf16 {worst['bfloat16']:.3e} (tol 2^-7 |ref| + 1e-6 "
+          f"max|buf|); in place == out of place bit for bit")
+
+
+def slot_loop(torch, cfg, capacity, live, seq, device, seed, draw_on=None,
+              mixer_factory=None, timed_step=None, loop_cls=None):
+    """A SlotTrainLoop over ``cfg`` on ``device``: ``live`` clients of
+    ``capacity`` slots, sgd(0.05), fedlay over 2 spaces with resident flat
+    parameters; parameters from generators on ``draw_on`` (default
+    ``device``) seeded by node, one sequence of ``seq`` tokens a client
+    and round from numpy keyed by (node, round)."""
+    import numpy as np
+    from repro_torch.core.ndmp import Simulator
+    from repro_torch.dist.flat import tree_map
+    from repro_torch.launch.steps import dfl_local_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.overlay.controller import OverlayController
+    from repro_torch.runtime.loop import SlotTrainLoop
+
+    def make_params(node):
+        gen = torch.Generator(device=draw_on or device).manual_seed(seed + node)
+        return tree_map(lambda l: l.to(device), init_params(cfg, gen))
+
+    def make_batch(ids, step):
+        toks = np.stack([np.random.default_rng([u, step]).integers(
+            0, cfg.vocab_size, (1, seq + 1)) for u in ids])
+        t = torch.from_numpy(toks).to(device)
+        return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+
+    sim = Simulator(num_spaces=2, latency=0.05, heartbeat_period=0.5,
+                    probe_period=1.0, seed=0)
+    sim.seed_network(list(range(live)))
+    ctl = OverlayController(sim, capacity=capacity, fuse="flat", flat_io=True,
+                            mixer_factory=mixer_factory)
+    step = dfl_local_step(cfg, sgd(0.05))
+    return (loop_cls or SlotTrainLoop)(
+        ctl, local_step=timed_step(step) if timed_step else step,
+        make_params=make_params, optimizer=sgd(0.05), make_batch=make_batch)
+
+
+def small_train(torch):
+    """tiny_lm under SlotTrainLoop on the card and on the CPU, the same
+    parameters, data and churn: the same alive sequence, and each
+    round's loss within 1e-4 relative (f32 on both; the card sums in
+    other orders, over 6 rounds)."""
+    from repro_torch.configs import tiny_lm
+    from repro_torch.overlay.events import ChurnTrace
+    runs = []
+    for device in ("cpu", "cuda"):
+        loop = slot_loop(torch, tiny_lm(), 8, 7, 64, device, seed=0, draw_on="cpu")
+        recs = loop.run(6, trace=ChurnTrace.scripted(TRAIN_CHURN))
+        runs.append(([r.num_alive for r in recs], [r.loss for r in recs]))
+    (cpu_alive, cpu_loss), (gpu_alive, gpu_loss) = runs
+    check(cpu_alive == gpu_alive, f"alive sequences differ: {cpu_alive} vs {gpu_alive}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(gpu_loss, cpu_loss))
+    check(err <= 1e-4, f"tiny_lm losses differ by {err:.3e} relative")
+    print(f"small: tiny_lm SlotTrainLoop, 8 slots, 6 rounds with a fail and a "
+          f"join: card == CPU alive sequence {gpu_alive}, max loss difference "
+          f"{err:.3e} relative (tol 1e-4)")
+
+
+def flat_size(torch, cfg) -> int:
+    """N, the flat row's width for ``cfg``, from shapes alone."""
+    from repro_torch.dist.flat import FlatSpec, tree_map
+    from repro_torch.models.model import init_params
+    tree = init_params(cfg, torch.Generator(), device="meta")
+    return FlatSpec.for_tree(tree_map(lambda l: l[None], tree)).size
+
+
+def act_bytes(cfg, seq: int) -> int:
+    """One client's activations in a forward and backward pass, reckoned:
+    the f32 logits and three copies of their size (the softmax, its
+    gradient, the unembedding's input gradient); per layer the attention
+    scores and probabilities with their gradients (4 x Hq x S^2 f32) and
+    sixteen (S, d_ff) f32 intermediates of the MLP and its gradient."""
+    per_layer = 4 * cfg.num_heads * seq * seq * 4 + 16 * seq * cfg.d_ff * 4
+    return 4 * seq * cfg.padded_vocab * 4 + cfg.num_layers * per_layer
+
+
+def train_depth(torch, base):
+    """The most layers whose reckoned bytes, (population + mixer output)
+    x C x N x 4 + one gradient row + activations, stay within 80 % of
+    the card's memory."""
+    limit = 0.8 * torch.cuda.get_device_properties(0).total_memory
+    best = None
+    for layers in range(1, base.num_layers + 1):
+        cfg = dataclasses.replace(base, num_layers=layers)
+        N = flat_size(torch, cfg)
+        resident = (2 * TRAIN_CAPACITY + 1) * N * 4
+        total = resident + act_bytes(cfg, TRAIN_SEQ)
+        if total > limit:
+            break
+        best = (cfg, N, resident, total)
+    check(best is not None, "not even one layer fits the card")
+    return best + (limit,)
+
+
+def phase_train(torch, card):
+    """The DFL round at Llama-3.2-3B width, with its checks and times."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import REGISTRY
+    from repro_torch.dist import sync
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.gather_mix import gather_mix
+    from repro_torch.kernels.ref import gather_mix_ref, round_matrix
+    from repro_torch.overlay.events import ChurnTrace
+    from repro_torch.overlay.runtime import joiner_donors
+    from repro_torch.runtime.loop import SlotTrainLoop
+
+    base = REGISTRY["llama3.2-3b"]
+    cfg, N, resident, reckoned, limit = train_depth(torch, base)
+    C = TRAIN_CAPACITY
+    print(f"train: {base.name} at full width (d_model {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied) cut to "
+          f"{cfg.num_layers} of {base.num_layers} layers: the most whose "
+          f"reckoned bytes, {resident / 1e9:.2f} GB resident ((2 x {C} + 1) x N "
+          f"x 4, N = {N}) + {(reckoned - resident) / 1e9:.2f} GB activations, "
+          f"stay within 80 % of the card's {limit / 0.8 / 1e9:.2f} GB; {C} slots, "
+          f"{TRAIN_LIVE} live, 1 x {TRAIN_SEQ} tokens a client, sgd lr 0.05")
+
+    times = {"local": [], "mix": []}
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    joins = []
+
+    class CheckedLoop(SlotTrainLoop):
+        """Holds each joiner's row to its donor's as the plan lands."""
+
+        def _apply_plan(self, plan):
+            joined, left = super()._apply_plan(plan)
+            ctl = self.controller
+            donors = joiner_donors(ctl.alive_schedule, ctl.alive, joined,
+                                   tuple(u for u, _ in plan.survivors))
+            for u in joined:
+                check(donors[u] is not None, f"joiner {u} has no donor")
+                a, b = ctl.slots.slot_of[u], ctl.slots.slot_of[donors[u]]
+                check(torch.equal(self.params[a], self.params[b]),
+                      f"joiner {u}'s row differs from donor {donors[u]}'s")
+                joins.append((u, a, donors[u], b))
+            return joined, left
+
+    # record the round's table as it reaches the kernel
+    last = {}
+    real_gather_mix = sync.gather_mix
+
+    def recording(buf, srcs, weights, out=None):
+        last.update(srcs=srcs, weights=weights)
+        return real_gather_mix(buf, srcs, weights, out=out)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = slot_loop(
+        torch, cfg, C, TRAIN_LIVE, TRAIN_SEQ, "cuda", seed=1000,
+        mixer_factory=lambda sched: timed(sync.global_mixer(
+            "fedlay", sched, masked=True, fuse="flat", flat_io=True), "mix"),
+        timed_step=lambda step: timed(step, "local"), loop_cls=CheckedLoop)
+    torch.cuda.synchronize()
+    print(f"train: population ({C}, {N}) f32, {TRAIN_LIVE} clients drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    buffers = {loop.params.data_ptr(), loop._spare.data_ptr()}
+    trace = ChurnTrace.scripted(TRAIN_CHURN)
+    ctl = loop.controller
+    dead_checked = 0
+    sync.gather_mix = recording
+    try:
+        flash_decode.launches = gather_mix.launches = 0
+        for r in range(TRAIN_ROUNDS):
+            before = {s: loop.params[s].cpu() for s in range(C)
+                      if ctl.slots.node_at(s) is None
+                      or ctl.slots.node_at(s) in {e[2] for e in TRAIN_CHURN}}
+            rec = loop.run(1, trace=trace)[-1]
+            for s, row in before.items():
+                if ctl.slots.node_at(s) is None:
+                    check(torch.equal(loop.params[s].cpu(), row),
+                          f"dead slot {s} changed in round {r}")
+                    dead_checked += 1
+            print(f"train: round {r}: {rec.num_alive} alive (joined "
+                  f"{list(rec.joined)}, left {list(rec.left)}), loss {rec.loss:.6f}; "
+                  f"local step {times['local'][-1]:.1f} ms, mixing "
+                  f"{times['mix'][-1]:.2f} ms")
+            check(np.isfinite(rec.loss), f"round {r} loss is not finite")
+        launches, decodes = gather_mix.launches, flash_decode.launches
+    finally:
+        sync.gather_mix = real_gather_mix
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == TRAIN_ROUNDS, f"gather_mix launches {launches} != "
+          f"{TRAIN_ROUNDS} rounds")
+    check(decodes == 0, f"training launched flash_decode {decodes} times")
+    check([r.num_alive for r in loop.records] == [7, 6, 6, 7, 7, 7],
+          f"alive sequence {[r.num_alive for r in loop.records]}")
+    check(len(joins) == 1 and dead_checked > 0, "no join or no dead row checked")
+    check({loop.params.data_ptr(), loop._spare.data_ptr()} == buffers,
+          "a resident buffer was reallocated")
+    print(f"train: gather_mix launches {launches} = {TRAIN_ROUNDS} rounds; dead "
+          f"rows unchanged bit for bit ({dead_checked} row-rounds); joiner "
+          f"{joins[0][0]} (slot {joins[0][1]}) == donor {joins[0][2]} (slot "
+          f"{joins[0][3]}) bit for bit as the plan landed; 2 resident buffers "
+          f"(the sgd state is empty), data_ptr unchanged over {TRAIN_ROUNDS} "
+          f"rounds; peak memory {peak / 1e9:.2f} GB against {reckoned / 1e9:.2f} "
+          f"GB reckoned ({card})")
+
+    # the last round's output against the plain version, chunk by chunk
+    # (its (C, K1, N) gather does not fit at full N)
+    out, inp = loop.params, loop._spare
+    srcs, weights = last["srcs"], last["weights"]
+    err = scale = 0.0
+    for a in range(0, N, CHUNK):
+        ref = gather_mix_ref(inp[:, a:a + CHUNK], srcs, weights)
+        err = max(err, (out[:, a:a + CHUNK] - ref).abs().max().item())
+        scale = max(scale, inp[:, a:a + CHUNK].abs().max().item())
+    check(err <= 1e-6 * scale, f"mixing output differs from the plain version by {err}")
+    print(f"train: round {TRAIN_ROUNDS - 1}'s mixing output vs gather_mix_ref, "
+          f"column chunk by chunk: max abs err {err:.3e} <= 1e-6 x max|buf| "
+          f"{scale:.3f}")
+
+    # one more round under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.run(1, trace=trace)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us / 1e3
+    busy = sum(by_kernel.values())
+    steady = range(3, TRAIN_ROUNDS)
+    local = sum(times["local"][i] for i in steady) / len(steady)
+    mix = sum(times["mix"][i] for i in steady) / len(steady)
+    print(f"breakdown: DFL round at {cfg.num_layers} layers, {TRAIN_LIVE} live "
+          f"clients: host {wall:.1f} ms for the profiled round; over rounds "
+          f"3-{TRAIN_ROUNDS - 1} local step {local:.1f} ms and mixing {mix:.2f} ms "
+          f"a round; device busy {busy:.1f} ms in the profiled round "
+          f"({100 * busy / wall:.1f} %), idle share {100 * (1 - busy / wall):.1f} % "
+          f"({card})")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print("breakdown: round kernels (ms): " + "; ".join(
+        f"{name[:60]} {ms:.3f}" for name, ms in top))
+
+    # the kernel at the round's own shape and data
+    W = round_matrix(C, srcs, weights)
+    ms = device_ms(torch, [lambda: real_gather_mix(inp, srcs, weights, out=out)], 5)
+
+    def plain():
+        for a in range(0, N, CHUNK):
+            gather_mix_ref(inp[:, a:a + CHUNK], srcs, weights)
+    plain_ms = device_ms(torch, [plain], 1)
+    library_ms = device_ms(torch, [lambda: torch.matmul(W, inp, out=out)], 3)
+    t_bytes = 2 * C * N * 4 / HBM_BYTES_PER_S
+    t_ops = 2 * C * C * N / F32_FLOPS_PER_S
+    bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                                     else "operations")
+    print(f"train: gather_mix f32 at the round's shape C = {C}, K1 = "
+          f"{srcs.shape[1]}, N = {N}: device time per call: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms (over column chunks of {CHUNK}), bound "
+          f"{bound_ms:.3f} ms ({bound_by}), torch.matmul(W, buf) {library_ms:.3f} ms "
+          f"({card})")
+    return {"name": "gather_mix", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gather_mix.cu",
+            "replaces": "src/repro/kernels/weighted_mix.py:230",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -393,7 +747,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
     from repro_torch import resolve_device
-    from repro_torch.kernels.build import build
+    from repro_torch.kernels.build import SOURCES, build
 
     resolve_device("cuda")          # TF32 off for f32 products
     card = card_line()
@@ -401,16 +755,23 @@ def main() -> int:
           f"allow_tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}; card {card}")
     t0 = time.perf_counter()
-    logs = build(["flash_decode"], verbose=True)
-    print(f"build: flash_decode.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
-    for line in logs["flash_decode"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("build:", line.strip())
+    logs = build(SOURCES, verbose=True)
+    print(f"build: {', '.join(f'{n}.cu' for n in SOURCES)} for sm_90a, "
+          f"in parallel, in {time.perf_counter() - t0:.1f} s")
+    for name in SOURCES:
+        for line in logs[name].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name}:", line.strip())
 
     phase_kernels(torch, F, card)
+    check_gather_mix(torch)
     phase_small(torch)
-    entry = phase_slice(torch, F, card)
-    print(json.dumps({"kernels": [entry]}))
+    small_train(torch)
+    serve_entry = phase_slice(torch, F, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_entry = phase_train(torch, card)
+    print(json.dumps({"kernels": [serve_entry, train_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

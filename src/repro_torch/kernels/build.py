@@ -21,6 +21,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: Every kernel source of the port, by name (``csrc/<name>.cu``).
+SOURCES = ("flash_decode", "gather_mix")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -1,13 +1,15 @@
 """Plain-PyTorch versions of the port's kernels: what the CPU tests run,
 and what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
-Counterpart of ``repro/kernels/ref.py``.  Only the oracle of this
-slice's kernel (``flash_decode``) is here so far; the others arrive with
-the kernels that need them (ROADMAP.md, Queue 2).
+Counterpart of ``repro/kernels/ref.py``.  The oracles of the ported
+kernels (``flash_decode``, ``gather_mix``) are here, with
+:func:`round_matrix`, which ``gather_mix`` runs outside its kernel; the
+others arrive with the kernels that need them (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -45,3 +47,39 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     idx = torch.arange(L, device=q.device)
     return decode_attention_ref(q, k_cache, v_cache,
                                 idx[None, :] <= pos[:, None])
+
+
+def round_matrix(C: int, srcs, weights: torch.Tensor) -> torch.Tensor:
+    """Scatter a (C, K1) ``(srcs, weights)`` gather table into the dense
+    (C, C) f32 round-mixing matrix ``W[i, srcs[i, k]] += weights[i, k]``
+    on the weights' device (duplicate sources add).
+
+    The port of ``repro/kernels/weighted_mix.py:round_matrix``.  Host
+    ``srcs`` (numpy or a sequence) are checked for range eagerly; a
+    tensor ``srcs`` (the cohort case, where the table is data) is the
+    caller's contract, as a traced one is in the reference."""
+    if not isinstance(srcs, torch.Tensor):
+        srcs = np.asarray(srcs, np.int64)
+        if srcs.min() < 0 or srcs.max() >= C:
+            raise ValueError(f"source rows out of range for {C} clients")
+        srcs = torch.from_numpy(srcs)
+    if srcs.shape[0] != C or tuple(weights.shape) != tuple(srcs.shape):
+        raise ValueError(
+            f"srcs {tuple(srcs.shape)} / weights {tuple(weights.shape)} do "
+            f"not match {(C,)} clients")
+    srcs = srcs.to(device=weights.device, dtype=torch.int64)
+    rows = torch.arange(C, device=weights.device)[:, None].expand(srcs.shape)
+    W = torch.zeros((C, C), dtype=torch.float32, device=weights.device)
+    return W.index_put_((rows, srcs), weights.float(), accumulate=True)
+
+
+def gather_mix_ref(buf: torch.Tensor, srcs, weights: torch.Tensor) -> torch.Tensor:
+    """buf (C, N), srcs (C, K1) ints, weights (C, K1) →
+    out[i] = Σ_k weights[i, k]·buf[srcs[i, k]], f32 math, in buf.dtype.
+    It gathers a (C, K1, N) f32 temporary, as the reference's oracle
+    (``repro/kernels/ref.py:gather_mix_ref``) does."""
+    idx = torch.as_tensor(np.asarray(srcs) if not isinstance(srcs, torch.Tensor)
+                          else srcs, device=buf.device).long()
+    gathered = buf.float()[idx]                                 # (C, K1, N)
+    acc = (gathered * weights.float()[..., None]).sum(dim=1)
+    return acc.to(buf.dtype)

@@ -1,7 +1,7 @@
 """GQA attention, the port of ``repro/models/attention.py`` for the
 dense decoder: projections with rotary embedding, the causal blockwise
-prefill (optionally sliding-window), and single-token decode against a
-KV cache.
+attention of training and prefill (optionally sliding-window), and
+single-token decode against a KV cache.
 
 Attention parameters are a dict-like ``p`` (an ``nn.ParameterDict`` in
 the model) with ``wq``, ``wk``, ``wv``, ``wo`` in ``(d_in, d_out)``
@@ -101,6 +101,19 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     out = torch.stack(outs, dim=1).reshape(B, S, Hq, hd)
     return out.to(q.dtype)
+
+
+def gqa_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
+              head_dim: int, rope_theta: float, rms_eps: float = 1e-5,
+              window: Optional[int] = None) -> torch.Tensor:
+    """The train/prefill GQA self-attention block body (no residual, no
+    cache) over x (B, S, D) at positions 0..S-1."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
+                           positions, rope_theta, rms_eps)
+    out = blockwise_attention(q, k, v, window=window, causal=True)
+    return matmul(out.reshape(B, S, num_heads * head_dim), p["wo"])
 
 
 # --------------------------------------------------------------------------

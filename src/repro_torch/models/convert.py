@@ -1,4 +1,5 @@
-"""Carry the reference's parameters over into the port's model.
+"""Carry the reference's parameters over into the port's model, and map
+a parameter tree in the reference's layout onto the model's state dict.
 
 :func:`params_from_jax` takes the tree ``repro.models.model.init_params``
 returns, with every leaf as a numpy array (the caller converts; this
@@ -11,32 +12,13 @@ are copied, not transposed.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
 
 from .config import ArchConfig
-from .model import LanguageModel, LayerKind, layer_plan
-
-
-def find_segments(kinds: List[LayerKind]) -> List[Tuple[Tuple[LayerKind, ...], int]]:
-    """The reference's factoring of the layer plan into (superblock
-    pattern, repeats) segments, which fixes how its leaves are stacked."""
-    n = len(kinds)
-    for p in range(1, min(16, n) + 1):
-        if n % p == 0 and n // p > 1 \
-                and all(kinds[i] == kinds[i % p] for i in range(n)):
-            return [(tuple(kinds[:p]), n // p)]
-    segs: List[Tuple[Tuple[LayerKind, ...], int]] = []
-    i = 0
-    while i < n:
-        j = i
-        while j < n and kinds[j] == kinds[i]:
-            j += 1
-        segs.append(((kinds[i],), j - i))
-        i = j
-    return segs
+from .model import LanguageModel, find_segments, layer_plan
 
 
 def _tensor(a) -> torch.Tensor:
@@ -46,37 +28,54 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def _copy(dst: torch.Tensor, src) -> None:
-    src = _tensor(src)
-    if tuple(src.shape) != tuple(dst.shape):
-        raise ValueError(f"shape {tuple(src.shape)} does not fit parameter "
-                         f"{tuple(dst.shape)}")
-    with torch.no_grad():
-        dst.copy_(src)
+def tree_from_numpy(tree, device="cpu"):
+    """The reference's tree with numpy leaves (``jax.tree.map(np.asarray,
+    tree)``) as the same nested dict of tensors on ``device``; bfloat16
+    leaves stay bfloat16."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return _tensor(tree).to(device)
 
 
-def params_from_jax(cfg: ArchConfig, tree: dict,
-                    device="cpu") -> LanguageModel:
-    """A :class:`LanguageModel` on ``device`` holding the reference's
-    weights, in the dtype of the tree's embedding."""
-    dtype = _tensor(tree["embed"]).dtype
-    model = LanguageModel(cfg, torch.Generator(device=device), dtype=dtype)
-    _copy(model.embed, tree["embed"])
-    _copy(model.final_norm, tree["final_norm"])
+def module_state(cfg: ArchConfig, tree: dict) -> Dict[str, torch.Tensor]:
+    """The :class:`LanguageModel` state dict held by a parameter tree in
+    the reference's layout (``init_params``, or ``FlatSpec.unravel_row``
+    of a training row): each layer's entries are slices of the stacked
+    leaves, so views stay views."""
+    state = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
     if not cfg.tie_embeddings:
-        _copy(model.lm_head, tree["lm_head"])
+        state["lm_head"] = tree["lm_head"]
     layer = 0
     for si, (pattern, repeats) in enumerate(find_segments(layer_plan(cfg))):
         seg = tree[f"seg{si}"]
         for r in range(repeats):
             for i in range(len(pattern)):
                 sub = seg[f"sub{i}"]
-                dst = model.layers[layer + r * len(pattern) + i]
-                _copy(dst.norm1, sub["norm1"][r])
-                _copy(dst.norm2, sub["norm2"][r])
-                for name, p in dst.attn.items():
-                    _copy(p, sub["attn"][name][r])
-                for name, p in dst.mlp.items():
-                    _copy(p, sub["mlp"][name][r])
+                name = f"layers.{layer + r * len(pattern) + i}"
+                state[f"{name}.norm1"] = sub["norm1"][r]
+                state[f"{name}.norm2"] = sub["norm2"][r]
+                for group in ("attn", "mlp"):
+                    for key, leaf in sub[group].items():
+                        state[f"{name}.{group}.{key}"] = leaf[r]
         layer += repeats * len(pattern)
+    return state
+
+
+def params_from_jax(cfg: ArchConfig, tree: dict,
+                    device="cpu") -> LanguageModel:
+    """A :class:`LanguageModel` on ``device`` holding the reference's
+    weights (a tree of numpy leaves), in the dtype of its embedding.
+    Raises ``ValueError`` when a leaf does not fit its parameter."""
+    state = module_state(cfg, tree_from_numpy(tree))
+    model = LanguageModel(cfg, torch.Generator(device=device),
+                          dtype=state["embed"].dtype)
+    own = model.state_dict()
+    if set(own) != set(state):
+        raise ValueError(f"the tree's leaves {sorted(set(state) ^ set(own))} "
+                         f"do not match the model's parameters")
+    for name, src in state.items():
+        if tuple(src.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} does not fit "
+                             f"parameter {tuple(own[name].shape)}")
+    model.load_state_dict(state, strict=True)
     return model

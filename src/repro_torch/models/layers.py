@@ -8,6 +8,7 @@ the activation's dtype; norms and rotary embeddings compute in float32.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -77,3 +78,15 @@ def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits in float32; table (vocab, d)."""
     return torch.matmul(x.float(), table.float().t())
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; logits (..., V) f32, labels int
+    (``repro/models/layers.py:117``)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -15,6 +15,19 @@ API
   cache primed with the prompt)
 * ``decode_step(model, cache, token)`` → (logits, cache advanced)
 
+Training works on a parameter *tree* in the reference's layout instead
+of the module (``init_params``'s tree: ``embed``, ``final_norm``, and
+per segment ``seg{si}/sub{i}/...`` leaves stacked over the segment's
+repeats), so that the tree can be views into one flat row
+(:class:`repro_torch.dist.flat.FlatSpec`) and a local step neither
+copies a client into a module nor back:
+
+* ``init_params(cfg, generator, dtype)`` → the tree, drawn as the
+  module's weights are;
+* ``forward(cfg, params, tokens)`` → (logits (B, S, V) f32, aux)
+* ``train_loss(cfg, params, batch)`` → the mean next-token
+  cross-entropy (``repro/models/model.py:441``).
+
 The cache is ``{"pos", "k", "v"}`` with k and v of shape
 (num_layers, B, L, Hkv, hd), allocated once; prefill and decode write it
 in place.  ``pos`` is a 0-d tensor for the whole-batch decode loop or a
@@ -28,6 +41,7 @@ MLA, MoE, SSM, hybrid or encoder-decoder layers raises
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -36,7 +50,7 @@ from torch import nn
 from . import attention as attn
 from .config import ArchConfig
 from .layers import (dense_init, embed_apply, embed_init, mlp_apply, rmsnorm,
-                     unembed_apply)
+                     softmax_xent, unembed_apply)
 
 LayerKind = Tuple[str, Optional[str], bool]   # (mixer, ffn, cross)
 
@@ -61,6 +75,25 @@ def layer_plan(cfg: ArchConfig) -> List[LayerKind]:
         ffn = None if cfg.family == "ssm" else ("moe" if moe_mask[i] else "dense")
         kinds.append((mixer, ffn, cfg.enc_dec))
     return kinds
+
+
+def find_segments(kinds: List[LayerKind]) -> List[Tuple[Tuple[LayerKind, ...], int]]:
+    """The reference's factoring of the layer plan into (superblock
+    pattern, repeats) segments, which fixes how its leaves are stacked."""
+    n = len(kinds)
+    for p in range(1, min(16, n) + 1):
+        if n % p == 0 and n // p > 1 \
+                and all(kinds[i] == kinds[i % p] for i in range(n)):
+            return [(tuple(kinds[:p]), n // p)]
+    segs: List[Tuple[Tuple[LayerKind, ...], int]] = []
+    i = 0
+    while i < n:
+        j = i
+        while j < n and kinds[j] == kinds[i]:
+            j += 1
+        segs.append(((kinds[i],), j - i))
+        i = j
+    return segs
 
 
 def check_servable(cfg: ArchConfig) -> None:
@@ -253,3 +286,93 @@ def decode_step(model: LanguageModel, cache: dict,
     else:
         pos.add_((pos >= 0).to(pos.dtype))
     return logits, cache
+
+
+# --------------------------------------------------------------------------
+# Training: the parameter tree in the reference's layout
+# --------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                dtype=torch.float32, device=None) -> dict:
+    """A parameter tree in the reference's layout, with the module's
+    distributions: dense weights (d_in, d_out) U(±1/sqrt(d_in)),
+    embeddings N(0, 0.02²), norms ones.  Each segment's leaves are
+    stacked over its repeats.  The tree lives on ``device``, by default
+    the generator's; ``device="meta"`` gives its shapes alone."""
+    check_servable(cfg)
+    dev = generator.device if device is None else torch.device(device)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+
+    def embed():
+        w = torch.empty((cfg.padded_vocab, d), dtype=torch.float32, device=dev)
+        return (w.normal_(generator=generator) * 0.02).to(dtype)
+
+    def dense(repeats, d_in, d_out):
+        s = 1.0 / math.sqrt(d_in)
+        w = torch.empty((repeats, d_in, d_out), dtype=torch.float32, device=dev)
+        return w.uniform_(-s, s, generator=generator).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    params = {"embed": embed(), "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed()
+    for si, (pattern, repeats) in enumerate(find_segments(layer_plan(cfg))):
+        seg = {}
+        for i in range(len(pattern)):
+            attn_p = {"wq": dense(repeats, d, cfg.num_heads * hd),
+                      "wk": dense(repeats, d, cfg.num_kv_heads * hd),
+                      "wv": dense(repeats, d, cfg.num_kv_heads * hd),
+                      "wo": dense(repeats, cfg.num_heads * hd, d)}
+            if cfg.qk_norm:
+                attn_p["q_norm"] = ones(repeats, hd)
+                attn_p["k_norm"] = ones(repeats, hd)
+            seg[f"sub{i}"] = {
+                "norm1": ones(repeats, d), "attn": attn_p,
+                "norm2": ones(repeats, d),
+                "mlp": {"w_gate": dense(repeats, d, cfg.d_ff),
+                        "w_up": dense(repeats, d, cfg.d_ff),
+                        "w_down": dense(repeats, cfg.d_ff, d)}}
+        params[f"seg{si}"] = seg
+    return params
+
+
+def _apply_sublayer(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Pre-norm GQA attention + SwiGLU MLP with residuals, over the whole
+    sequence."""
+    h = attn.gqa_apply(p["attn"], rmsnorm(p["norm1"], x, cfg.rms_eps),
+                       **_attn_kwargs(cfg))
+    x = x + h
+    return x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.rms_eps))
+
+
+def forward(cfg: ArchConfig, params: dict,
+            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) → (logits (B, S, V) f32, aux loss 0): embed, every
+    layer over the whole causal sequence, final norm, unembedding and
+    the padded-vocab mask (``repro/models/model.py:forward``, dense
+    family)."""
+    check_servable(cfg)
+    x = embed_apply(params["embed"], tokens)
+    for si, (pattern, repeats) in enumerate(find_segments(layer_plan(cfg))):
+        seg = params[f"seg{si}"]
+        for r in range(repeats):
+            for i in range(len(pattern)):
+                sub = seg[f"sub{i}"]
+                x = _apply_sublayer(
+                    {"norm1": sub["norm1"][r], "norm2": sub["norm2"][r],
+                     "attn": {k: v[r] for k, v in sub["attn"].items()},
+                     "mlp": {k: v[r] for k, v in sub["mlp"].items()}}, cfg, x)
+    h = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = _mask_pad(unembed_apply(table, h), cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def train_loss(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    """batch: tokens (B, S), labels (B, S) ints → the mean next-token
+    cross-entropy plus the aux loss (``repro/models/model.py:441``; the
+    dense family has no MTP head and no aux loss)."""
+    logits, aux = forward(cfg, params, batch["tokens"])
+    return softmax_xent(logits, batch["labels"]) + aux

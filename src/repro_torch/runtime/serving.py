@@ -44,6 +44,7 @@ from typing import Deque, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.convert import module_state
 from ..models.model import (LanguageModel, cache_rows, decode_step,
                             init_cache, prefill)
 from ..obs.events import get_telemetry
@@ -262,3 +263,12 @@ class ServeLoop:
         requests continue on the new weights."""
         self.model.load_state_dict(params, strict=True)
         get_telemetry().count("serve.reloads")
+
+    def reload_from_flat(self, buf: torch.Tensor, spec, row: int = 0) -> None:
+        """Hot-reload from the training loop's (B, N) flat buffer: lift
+        client ``row`` as a parameter tree in the reference's layout
+        (``spec.unravel_row``, views of the row) and copy it into the
+        served model.  ``spec`` is the :class:`~repro_torch.dist.flat.FlatSpec`
+        of the buffer."""
+        tree = spec.unravel_row(buf[row])
+        self.reload(module_state(self.model.cfg, tree))

@@ -28,6 +28,15 @@ SWEEP = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Keep each xdist worker's intra-op pool small."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(rng, B, Hq, Hkv, hd, L):
     return (rng.standard_normal((B, Hq, hd)).astype(np.float32),
             rng.standard_normal((B, L, Hkv, hd)).astype(np.float32),

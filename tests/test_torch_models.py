@@ -27,6 +27,15 @@ from repro_torch.models.model import (LanguageModel, decode_step, init_cache,
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Keep each xdist worker's intra-op pool small."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32).copy())
 
