@@ -29,13 +29,11 @@ from __future__ import annotations
 import dataclasses
 import time as _time
 from collections import OrderedDict
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 from ..core.coords import NodeAddress
-from ..core.mep import ClientProfile
 from ..core.mixing import PermuteSchedule, pad_schedule, schedule_from_addresses
 from ..core.ndmp import SimulatorProtocol
-from ..core.topology import Topology, fedlay_topology
 from ..obs.events import get_telemetry
 from ..runtime.slots import SlotMap
 from .events import ChurnEvent, ChurnTrace, DeltaTracker, TableDelta
@@ -79,14 +77,6 @@ class MixerCache:
             self.evictions += 1
         return mixer, False
 
-    @property
-    def hit_rate(self) -> float:
-        total = self.hits + self.misses
-        return self.hits / total if total else 0.0
-
-    def __len__(self) -> int:
-        return len(self._cache)
-
 
 def _global_mixer_factory(strategy: str = "fedlay", masked: bool = False,
                           fuse: Optional[str] = None, flat_io: bool = False):
@@ -122,7 +112,6 @@ class ControlReport:
     rebuilt: bool                  # a schedule was rebuilt host-side
     cache_hit: bool                # the mixer came out of the cache
     rebuild_ms: float              # host time spent building the schedule
-    correctness: Optional[float] = None
 
 
 class OverlayController:
@@ -131,9 +120,9 @@ class OverlayController:
 
     ``step(dt)`` advances NDMP by ``dt`` of simulated time, detects
     table deltas, and exposes the current mixer via :attr:`mixer`
-    (hot-swapped only when the membership changed).  ``profiles_fn``
-    supplies MEP confidence profiles for an alive set; default: uniform
-    profiles.
+    (hot-swapped only when the membership changed).  Schedules use
+    uniform MEP profiles (the reference's default; its ``profiles_fn``
+    has no caller in the port yet).
 
     ``capacity`` switches on fixed-capacity slot mode (above).
     ``double_buffered`` defers the swap to the round boundary: ``step()``
@@ -148,15 +137,8 @@ class OverlayController:
 
     def __init__(self, sim: SimulatorProtocol, *,
                  strategy: str = "fedlay",
-                 alpha_d: float = 0.5, alpha_c: float = 0.5,
-                 confidence_weighted: bool = True,
-                 profiles_fn: Optional[
-                     Callable[[Tuple[int, ...]],
-                              Dict[int, ClientProfile]]] = None,
                  mixer_factory: Optional[
                      Callable[[PermuteSchedule], Callable]] = None,
-                 cache_size: int = 64,
-                 measure_correctness: bool = False,
                  capacity: Optional[int] = None,
                  double_buffered: bool = False,
                  fuse: Optional[str] = None,
@@ -166,13 +148,8 @@ class OverlayController:
         self.sim = sim
         self.tracker = DeltaTracker(sim)
         self.strategy = strategy
-        self.alpha_d, self.alpha_c = alpha_d, alpha_c
-        self.confidence_weighted = confidence_weighted
-        self.profiles_fn = profiles_fn
-        self.measure_correctness = measure_correctness
         self.capacity = capacity
         self.double_buffered = double_buffered
-        self.clients_per_device = 1
         self.codec, self.fuse = resolve_wire(codec, fuse)
         self.flat_io = bool(flat_io)
         if self.flat_io and self.fuse != "flat":
@@ -183,7 +160,7 @@ class OverlayController:
             mixer_factory = _global_mixer_factory(
                 strategy, masked=capacity is not None, fuse=self.fuse,
                 flat_io=self.flat_io)
-        self.cache = MixerCache(mixer_factory, maxsize=cache_size)
+        self.cache = MixerCache(mixer_factory)
         self.rebuilds = 0
         self.swaps = 0
         self.last_commit_ms = 0.0
@@ -236,14 +213,6 @@ class OverlayController:
         assert self._mixer is not None
         return self._mixer
 
-    @property
-    def epoch(self) -> int:
-        return self.tracker.epoch
-
-    def topology(self) -> Topology:
-        """The ideal FedLay graph over the current alive set."""
-        return fedlay_topology(self._alive_addresses())
-
     # ---- the control step ------------------------------------------------
     def step(self, dt: float,
              events: Iterable[ChurnEvent] = (),
@@ -281,9 +250,7 @@ class OverlayController:
         return ControlReport(
             epoch=self.tracker.epoch, time=self.sim.now,
             alive=alive, delta=delta, swapped=swapped,
-            rebuilt=rebuilt, cache_hit=cache_hit, rebuild_ms=rebuild_ms,
-            correctness=(self.sim.correctness()
-                         if self.measure_correctness else None))
+            rebuilt=rebuilt, cache_hit=cache_hit, rebuild_ms=rebuild_ms)
 
     def commit(self):
         """Apply the staged swap at the round boundary (no-op unless
@@ -323,12 +290,7 @@ class OverlayController:
         t0 = _time.perf_counter()
         addrs = self._alive_addresses()
         alive = tuple(a.node_id for a in addrs)
-        profiles = (self.profiles_fn(alive)
-                    if self.profiles_fn is not None else None)
-        alive_sched = schedule_from_addresses(
-            addrs, profiles=profiles, alpha_d=self.alpha_d,
-            alpha_c=self.alpha_c,
-            confidence_weighted=self.confidence_weighted)
+        alive_sched = schedule_from_addresses(addrs)
         plan = None
         sched = alive_sched
         if self.slots is not None:

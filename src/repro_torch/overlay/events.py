@@ -81,10 +81,6 @@ class ChurnTrace:
         object.__setattr__(self, "events", ordered)
         object.__setattr__(self, "_times", [e.time for e in ordered])
 
-    @property
-    def horizon(self) -> float:
-        return self.events[-1].time if self.events else 0.0
-
     def between(self, t0: float, t1: float) -> Tuple[ChurnEvent, ...]:
         """Events with time in the half-open window (t0, t1]."""
         lo = bisect.bisect_right(self._times, t0)
@@ -142,7 +138,7 @@ class TableDelta:
     """What changed in the live neighbor tables between two polls.
 
     ``epoch`` increases by one per poll *that observed a change*;
-    quiescent polls return the previous epoch with ``empty`` True.
+    quiescent polls return the previous epoch and no change.
     ``changed`` maps surviving nodes whose neighbor set differs to their
     (old, new) sets.
     """
@@ -152,14 +148,6 @@ class TableDelta:
     joined: FrozenSet[int]
     left: FrozenSet[int]
     changed: Dict[int, Tuple[FrozenSet[int], FrozenSet[int]]]
-
-    @property
-    def empty(self) -> bool:
-        return not (self.joined or self.left or self.changed)
-
-    @property
-    def num_affected(self) -> int:
-        return len(self.joined) + len(self.left) + len(self.changed)
 
 
 class DeltaTracker:
@@ -174,11 +162,6 @@ class DeltaTracker:
         self.epoch = 0
         self._version = sim.tables_version()
         self._tables = sim.neighbor_tables()
-
-    @property
-    def tables(self) -> Dict[int, frozenset]:
-        """The table snapshot as of the last poll."""
-        return self._tables
 
     def poll(self) -> TableDelta:
         version = self.sim.tables_version()

@@ -34,6 +34,7 @@ on degraded rounds through the mixer's ``edge_mask``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -43,12 +44,15 @@ import torch
 from ..core.mixing import multirate_participation
 from ..dist.flat import FlatSpec, tree_flatten, tree_map
 from ..faults.plan import edge_mask_for
-from ..obs.events import get_telemetry, telemetry
+from ..obs.events import get_telemetry
 from ..obs.rounds import get_round_ledger, round_ledger
 from ..overlay.controller import OverlayController
 from ..overlay.events import ChurnTrace
 from ..overlay.runtime import joiner_donors
 from .slots import RemapPlan
+
+#: Simulated seconds of NDMP time one training round advances.
+ROUND_TIME = 1.0
 
 
 def _store(dst, src) -> None:
@@ -107,8 +111,7 @@ class SlotTrainLoop:
                  optimizer,
                  make_batch: Callable[[Sequence[int], int], Dict[str, torch.Tensor]],
                  periods: Optional[Dict[int, float]] = None,
-                 step_time: float = 1.0,
-                 telemetry=None, ledger=None):
+                 ledger=None):
         if controller.slots is None:
             raise ValueError(
                 "SlotTrainLoop needs a capacity-mode controller "
@@ -120,8 +123,6 @@ class SlotTrainLoop:
         self.make_params = make_params
         self.make_batch = make_batch
         self.periods = periods
-        self.step_time = step_time
-        self._telemetry = telemetry
         self._ledger = ledger
         self._step = 0
         self._bytes_cache: Dict[tuple, tuple] = {}
@@ -139,7 +140,10 @@ class SlotTrainLoop:
         self._spec = FlatSpec.for_tree(shape_tree)
         self._row_spec = FlatSpec.for_tree(
             tree_map(lambda l: l.unsqueeze(0), first))
-        self._row_elems = self._spec.size
+        # a client's elements for the ledger's wire bytes: the padded flat
+        # row when resident flat, the parameters themselves otherwise
+        self._row_elems = (self._spec.size if self.flat_io
+                           else sum(self._spec.sizes))
         dev = tree_flatten(first)[0][0].device
         # resident state, allocated once; dead slots hold zeros
         if self.flat_io:
@@ -238,11 +242,6 @@ class SlotTrainLoop:
         return {k: v[torch.as_tensor(idx, device=v.device)]
                 for k, v in batch.items()}
 
-    def state_dict(self) -> Dict[str, object]:
-        """The slot runtime's training state: the population (the flat
-        (capacity, N) buffer under ``flat_io``) and the optimizer state."""
-        return {"params": self.params, "opt_state": self.opt_state}
-
     # ---- telemetry -------------------------------------------------------
     def _record_round(self, ledger, step: int, report, participating: int,
                       loss: float, joined, left, degraded_edges: int) -> None:
@@ -272,16 +271,11 @@ class SlotTrainLoop:
     # ---- the loop --------------------------------------------------------
     def run(self, num_steps: int,
             trace: Optional[ChurnTrace] = None) -> List[SlotStepRecord]:
-        """``num_steps`` training rounds, one control interval each.  An
-        explicit ``telemetry=`` / ``ledger=`` on the loop is installed as
-        the process bus / ledger for the run."""
-        import contextlib
-        stack = contextlib.ExitStack()
-        if self._telemetry is not None:
-            stack.enter_context(telemetry(self._telemetry))
-        if self._ledger is not None:
-            stack.enter_context(round_ledger(self._ledger))
-        with stack:
+        """``num_steps`` training rounds, one control interval of
+        ``ROUND_TIME`` each.  An explicit ``ledger=`` on the loop is
+        installed as the process ledger for the run."""
+        with round_ledger(self._ledger) if self._ledger is not None \
+                else contextlib.nullcontext():
             for _ in range(num_steps):
                 self._round(trace)
         return self.records
@@ -289,7 +283,7 @@ class SlotTrainLoop:
     def _round(self, trace: Optional[ChurnTrace]) -> None:
         ctl = self.controller
         step = self._step
-        report = ctl.step(self.step_time, trace=trace)
+        report = ctl.step(ROUND_TIME, trace=trace)
         plan = ctl.commit()          # the swap lands at the round boundary
         joined, left = ((), ())
         if plan is not None and plan.changed:
@@ -322,14 +316,12 @@ class SlotTrainLoop:
             participating=part, loss=loss,
             swapped=report.swapped, cache_hit=report.cache_hit,
             joined=joined, left=left))
-        bus = (self._telemetry if self._telemetry is not None
-               else get_telemetry())
+        bus = get_telemetry()
         if bus.enabled:
             bus.count("slot.steps")
             bus.gauge("slot.num_alive", len(alive))
             bus.gauge("slot.participating", part)
-        ledger = (self._ledger if self._ledger is not None
-                  else get_round_ledger())
+        ledger = get_round_ledger()
         if ledger is not None:
             self._record_round(ledger, step, report, part, loss, joined,
                                left, degraded)

@@ -229,29 +229,60 @@ def _resident_ptrs(loop):
     return ptrs
 
 
-@pytest.mark.parametrize("flat_io", [True, False])
-def test_slot_loop_quadratic_matches_jax(flat_io):
-    """Same alive sequence, losses within 1e-5, the population within
-    1e-5; the resident buffers keep their storage across the churn."""
+PERIODS = {0: 1.0, 1: 2.0, 2: 1.0, 3: 3.0, 4: 2.0, 5: 1.0, 100: 2.0, 101: 1.0}
+FAULTS = dict(down_pairs=frozenset({(0, 4)}), slow_nodes=frozenset({2}))
+
+
+def _with_faults(cls, faults_cls):
+    """A simulator that reports data-plane faults, as a chaos engine
+    does: the slot loop then runs degraded rounds through edge_mask."""
+    class Faulty(cls):
+        def data_faults(self):
+            return faults_cls(**FAULTS)
+    return Faulty
+
+
+@pytest.mark.parametrize("variant", ["flat_io", "tree", "periods", "faults"])
+def test_slot_loop_quadratic_matches_jax(variant):
+    """Same alive sequence and churn, losses within 1e-5, the population
+    within 1e-5; the resident buffers keep their storage across the
+    churn.  ``periods`` adds multirate participation, ``faults`` a
+    simulator with data-plane faults (degraded rounds)."""
+    from repro.faults.plan import DataFaults as JDataFaults
+    from repro_torch.faults.plan import DataFaults
+    flat_io = variant != "tree"
+    periods = PERIODS if variant == "periods" else None
+    from repro.obs.rounds import RoundLedger as JRoundLedger
+    from repro_torch.obs.rounds import RoundLedger
+    jledger, tledger = JRoundLedger(), RoundLedger()
+    jsim_cls = (_with_faults(JSimulator, JDataFaults) if variant == "faults"
+                else JSimulator)
+    tsim_cls = (_with_faults(Simulator, DataFaults) if variant == "faults"
+                else Simulator)
     jloop = JSlotTrainLoop(
-        JController(_sim(JSimulator, 6), capacity=8, fuse="flat", flat_io=flat_io),
+        JController(_sim(jsim_cls, 6), capacity=8, fuse="flat", flat_io=flat_io),
         local_step=j_masked_local_step(_j_step),
         make_params=lambda u: {"w": jnp.asarray(_init_row(u))},
-        optimizer=jopt.sgd(0.0),
+        optimizer=jopt.sgd(0.0), periods=periods, ledger=jledger,
         make_batch=lambda ids, s: {"x": jnp.asarray(_rows(ids, s))})
     jrec = jloop.run(12, trace=_churn(JChurnTrace))
     tloop = SlotTrainLoop(
-        OverlayController(_sim(Simulator, 6), capacity=8, fuse="flat",
+        OverlayController(_sim(tsim_cls, 6), capacity=8, fuse="flat",
                           flat_io=flat_io),
         local_step=masked_local_step(_t_step),
         make_params=lambda u: {"w": torch.from_numpy(_init_row(u))},
-        optimizer=topt.sgd(0.0),
+        optimizer=topt.sgd(0.0), periods=periods, ledger=tledger,
         make_batch=lambda ids, s: {"x": torch.from_numpy(_rows(ids, s))})
     ptrs = _resident_ptrs(tloop)
     trec = tloop.run(12, trace=_churn(ChurnTrace))
-    assert [r.num_alive for r in trec] == [r.num_alive for r in jrec]
+    assert [(r.num_alive, r.participating) for r in trec] == \
+        [(r.num_alive, r.participating) for r in jrec]
     assert [(r.joined, r.left) for r in trec] == [(r.joined, r.left) for r in jrec]
     assert tloop.controller.alive == jloop.controller.alive
+    keys = ("wire_bytes_per_client", "degraded_edges", "swapped", "cache_hit")
+    assert [tuple(r.extra[k] for k in keys) for r in tledger.rows] == \
+        [tuple(getattr(r, k) for k in keys) for r in jledger.rows]
+    assert variant != "faults" or sum(r.extra["degraded_edges"] for r in tledger.rows)
     np.testing.assert_allclose([r.loss for r in trec], [r.loss for r in jrec],
                                rtol=0, atol=1e-5)
     assert _resident_ptrs(tloop) == ptrs
