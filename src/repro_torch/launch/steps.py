@@ -28,8 +28,7 @@ from ..models.model import train_loss
 from ..optim.optimizers import Optimizer, apply_updates_, clip_by_global_norm
 
 
-def dfl_local_step(cfg: ArchConfig, optimizer: Optimizer,
-                   max_norm: float = 1.0) -> Callable:
+def dfl_local_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:
     """The mask-aware local step ``(params, opt_state, batch, mask) ->
     (params, opt_state, metrics)`` over a capacity-stacked parameter
     tree in the reference's layout (leaves (C, ...)), a stacked optimizer
@@ -54,7 +53,7 @@ def dfl_local_step(cfg: ArchConfig, optimizer: Optimizer,
                                   {k: v[c] for k, v in batch.items()})
                 grads = list(torch.autograd.grad(loss, xs))
             with torch.no_grad():
-                grads, _ = clip_by_global_norm(grads, max_norm)
+                grads, _ = clip_by_global_norm(grads, 1.0)
                 updates, _ = optimizer.update(tree_unflatten(treedef, grads),
                                               o_row, p_row)
                 apply_updates_(p_row, updates)

@@ -21,10 +21,12 @@ The reference's counterpart of "zero retraces" is **zero reallocation**
 here: the population, the mixer's output buffer and the optimizer state
 are allocated once, when the loop is built, and keep their storage for
 the whole run (what each step or mixer returns is written into them).
-With ``OverlayController(flat_io=True)`` the population is one resident
-(capacity, N) flat buffer (:class:`repro_torch.dist.flat.FlatSpec`), and
-the local step sees a tree of views into it; the mixer writes the round
-into the second buffer and the two swap roles every round.
+The loop needs an ``OverlayController(flat_io=True)``: the population is
+one resident (capacity, N) flat buffer
+(:class:`repro_torch.dist.flat.FlatSpec`), and the local step sees a
+tree of views into it; the mixer writes the round into the second
+buffer and the two swap roles every round.  The reference's other mode,
+a resident parameter tree, waits for the slice whose path needs it.
 
 Checkpointing (``save`` / ``restore``) waits for ROADMAP.md Queue 1
 item 5, and wire codecs for item 7.  A simulator that offers
@@ -93,7 +95,7 @@ class SlotTrainLoop:
     keyed by node identity so survivors keep their data across remaps.
     ``local_step`` is ``(params, opt_state, batch, mask) -> (params,
     opt_state, metrics)``, where ``params`` is the capacity-stacked tree
-    (views into the flat buffer under ``flat_io``) and ``mask`` the
+    of views into the flat buffer and ``mask`` the
     (capacity,) numpy alive mask.
 
     ``periods`` (optional, node id → MEP period) enables multirate
@@ -116,6 +118,10 @@ class SlotTrainLoop:
             raise ValueError(
                 "SlotTrainLoop needs a capacity-mode controller "
                 "(OverlayController(..., capacity=C))")
+        if not controller.flat_io:
+            raise ValueError(
+                "SlotTrainLoop keeps the population resident flat: it needs "
+                "OverlayController(..., fuse=\"flat\", flat_io=True)")
         self.controller = controller
         self.capacity = C = controller.capacity
         self.local_step = local_step
@@ -126,7 +132,6 @@ class SlotTrainLoop:
         self._ledger = ledger
         self._step = 0
         self._bytes_cache: Dict[tuple, tuple] = {}
-        self.flat_io = controller.flat_io
         self.records: List[SlotStepRecord] = []
 
         live = [(s, controller.slots.node_at(s)) for s in range(C)
@@ -140,19 +145,11 @@ class SlotTrainLoop:
         self._spec = FlatSpec.for_tree(shape_tree)
         self._row_spec = FlatSpec.for_tree(
             tree_map(lambda l: l.unsqueeze(0), first))
-        # a client's elements for the ledger's wire bytes: the padded flat
-        # row when resident flat, the parameters themselves otherwise
-        self._row_elems = (self._spec.size if self.flat_io
-                           else sum(self._spec.sizes))
         dev = tree_flatten(first)[0][0].device
         # resident state, allocated once; dead slots hold zeros
-        if self.flat_io:
-            self.params = torch.zeros((C, self._spec.size),
-                                      dtype=self._spec.dtype, device=dev)
-            self._spare = torch.empty_like(self.params)
-        else:
-            self.params = tree_map(lambda l: torch.zeros_like(l), shape_tree)
-            self._spare = None
+        self.params = torch.zeros((C, self._spec.size),
+                                  dtype=self._spec.dtype, device=dev)
+        self._spare = torch.empty_like(self.params)
         self.opt_state = _stacked(optimizer.init(first), C)
         for slot, node in live:
             self._write_row(slot, first if slot == live[0][0]
@@ -162,24 +159,13 @@ class SlotTrainLoop:
     # ---- state surgery ---------------------------------------------------
     def _write_row(self, slot: int, row) -> None:
         """Write one client's (unstacked) tree into ``slot``."""
-        if self.flat_io:
-            self._row_spec.ravel(tree_map(lambda l: l.unsqueeze(0), row),
-                                 out=self.params[slot:slot + 1])
-        else:
-            for d, s in zip(tree_flatten(self.params)[0], tree_flatten(row)[0]):
-                d[slot].copy_(s)
-
-    def params_tree(self):
-        """The capacity-stacked parameter tree (views into the flat
-        buffer under ``flat_io``)."""
-        return self._spec.unravel(self.params) if self.flat_io else self.params
+        self._row_spec.ravel(tree_map(lambda l: l.unsqueeze(0), row),
+                             out=self.params[slot:slot + 1])
 
     def client_params(self, node_id: int):
         """The (unstacked) current model of one live client, as views."""
         slot = self.controller.slots.slot_of[node_id]
-        if self.flat_io:
-            return self._row_spec.unravel_row(self.params[slot])
-        return tree_map(lambda l: l[slot], self.params)
+        return self._row_spec.unravel_row(self.params[slot])
 
     def _apply_plan(self, plan: RemapPlan) -> Tuple[Tuple[int, ...],
                                                     Tuple[int, ...]]:
@@ -196,10 +182,8 @@ class SlotTrainLoop:
             donor = donors.get(node)
             if donor is None:
                 self._write_row(slot, self.make_params(node))
-            elif self.flat_io:
-                self.params[slot].copy_(self.params[ctl.slots.slot_of[donor]])
             else:
-                self._write_row(slot, self.client_params(donor))
+                self.params[slot].copy_(self.params[ctl.slots.slot_of[donor]])
             for d, s in zip(tree_flatten(self.opt_state)[0], tree_flatten(
                     self.optimizer.init(self.client_params(node)))[0]):
                 d[slot].copy_(s)
@@ -256,7 +240,7 @@ class SlotTrainLoop:
         wire = self._bytes_cache.get(key)
         if wire is None:
             wire = self._bytes_cache[key] = sync_bytes_per_client(
-                ctl.strategy, 4 * self._row_elems, self.capacity,
+                ctl.strategy, 4 * self._spec.size, self.capacity,
                 num_spaces=key[1], active_clients=key[2])
         ledger.record(
             round=step, time=report.time, loop="slot",
@@ -293,22 +277,15 @@ class SlotTrainLoop:
         mix_mask = self._mix_mask(alive, alive_mask, step)
         batch = self._capacity_batch(alive, step)
         em, degraded = self._edge_mask()
-        tree = self.params_tree()
         params, opt_state, metrics = self.local_step(
-            tree, self.opt_state, batch, alive_mask)
-        if self.flat_io:
-            self._spec.ravel(params, out=self.params)
-        else:
-            _store(self.params, params)
+            self._spec.unravel(self.params), self.opt_state, batch, alive_mask)
+        self._spec.ravel(params, out=self.params)
         _store(self.opt_state, opt_state)
         # the hot-swap seam: the controller's mask-aware mixer; slow or
         # dead slots pass through untouched
         mkw = {} if em is None else {"edge_mask": em}
-        if self.flat_io:
-            mixed = ctl.mixer(self.params, mix_mask, out=self._spare, **mkw)
-            self.params, self._spare = mixed, self.params
-        else:
-            _store(self.params, ctl.mixer(self.params, mix_mask, **mkw))
+        mixed = ctl.mixer(self.params, mix_mask, out=self._spare, **mkw)
+        self.params, self._spare = mixed, self.params
         part = int(mix_mask.sum())
         loss = float(metrics["loss"])
         self.records.append(SlotStepRecord(

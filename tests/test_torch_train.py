@@ -6,6 +6,7 @@
 both sides; each tolerance is stated where it is used."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ from repro.configs import reduce_for_smoke as j_reduce
 from repro.core.ndmp import Simulator as JSimulator
 from repro.launch.mesh import make_local_mesh
 from repro.launch.steps import dfl_train_bundle
+from repro.launch.train import tiny_lm as j_tiny_lm
 from repro.models.config import INPUT_SHAPES
 from repro.models.model import forward as j_forward
 from repro.models.model import init_params as j_init_params
@@ -29,6 +31,7 @@ from repro.runtime.loop import SlotTrainLoop as JSlotTrainLoop
 from repro.runtime.masked import masked_local_step as j_masked_local_step
 from repro.runtime.serving import ServeLoop as JServeLoop
 from repro_torch.configs import REGISTRY, reduce_for_smoke
+from repro_torch.configs import tiny_lm as t_tiny_lm
 from repro_torch.core.ndmp import Simulator
 from repro_torch.dist.flat import FlatSpec, tree_flatten
 from repro_torch.launch.steps import dfl_local_step
@@ -105,10 +108,15 @@ def test_one_sgd_step_delta_matches_jax():
     b = _batch(4)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     opt = jopt.sgd(0.05)
-    loss, g = jax.value_and_grad(lambda p: j_train_loss(J_CFG, p, jb))(params)
-    g, _ = jopt.clip_by_global_norm(g, 1.0)
-    upd, _ = opt.update(g, opt.init(params), params)
-    j_new = _np(jopt.apply_updates(params, upd))
+
+    @jax.jit
+    def j_step(p):
+        loss, g = jax.value_and_grad(lambda q: j_train_loss(J_CFG, q, jb))(p)
+        g, _ = jopt.clip_by_global_norm(g, 1.0)
+        upd, _ = opt.update(g, opt.init(p), p)
+        return loss, jopt.apply_updates(p, upd)
+    loss, j_new = j_step(params)
+    j_new = _np(j_new)
 
     stacked = tree_from_numpy(jax.tree.map(lambda l: np.asarray(l)[None], params))
     step = dfl_local_step(CFG, topt.sgd(0.05))
@@ -223,10 +231,7 @@ def _churn(cls):
 
 
 def _resident_ptrs(loop):
-    ptrs = {t.data_ptr() for t in tree_flatten(loop.params)[0]}
-    if loop.flat_io:
-        ptrs.add(loop._spare.data_ptr())
-    return ptrs
+    return {loop.params.data_ptr(), loop._spare.data_ptr()}
 
 
 PERIODS = {0: 1.0, 1: 2.0, 2: 1.0, 3: 3.0, 4: 2.0, 5: 1.0, 100: 2.0, 101: 1.0}
@@ -242,7 +247,7 @@ def _with_faults(cls, faults_cls):
     return Faulty
 
 
-@pytest.mark.parametrize("variant", ["flat_io", "tree", "periods", "faults"])
+@pytest.mark.parametrize("variant", ["flat_io", "periods", "faults"])
 def test_slot_loop_quadratic_matches_jax(variant):
     """Same alive sequence and churn, losses within 1e-5, the population
     within 1e-5; the resident buffers keep their storage across the
@@ -250,7 +255,6 @@ def test_slot_loop_quadratic_matches_jax(variant):
     simulator with data-plane faults (degraded rounds)."""
     from repro.faults.plan import DataFaults as JDataFaults
     from repro_torch.faults.plan import DataFaults
-    flat_io = variant != "tree"
     periods = PERIODS if variant == "periods" else None
     from repro.obs.rounds import RoundLedger as JRoundLedger
     from repro_torch.obs.rounds import RoundLedger
@@ -260,7 +264,7 @@ def test_slot_loop_quadratic_matches_jax(variant):
     tsim_cls = (_with_faults(Simulator, DataFaults) if variant == "faults"
                 else Simulator)
     jloop = JSlotTrainLoop(
-        JController(_sim(jsim_cls, 6), capacity=8, fuse="flat", flat_io=flat_io),
+        JController(_sim(jsim_cls, 6), capacity=8, fuse="flat", flat_io=True),
         local_step=j_masked_local_step(_j_step),
         make_params=lambda u: {"w": jnp.asarray(_init_row(u))},
         optimizer=jopt.sgd(0.0), periods=periods, ledger=jledger,
@@ -268,7 +272,7 @@ def test_slot_loop_quadratic_matches_jax(variant):
     jrec = jloop.run(12, trace=_churn(JChurnTrace))
     tloop = SlotTrainLoop(
         OverlayController(_sim(tsim_cls, 6), capacity=8, fuse="flat",
-                          flat_io=flat_io),
+                          flat_io=True),
         local_step=masked_local_step(_t_step),
         make_params=lambda u: {"w": torch.from_numpy(_init_row(u))},
         optimizer=topt.sgd(0.0), periods=periods, ledger=tledger,
@@ -292,13 +296,22 @@ def test_slot_loop_quadratic_matches_jax(variant):
                                    rtol=0, atol=1e-5)
 
 
+def _bare_loop(controller):
+    return SlotTrainLoop(controller, local_step=masked_local_step(_t_step),
+                         make_params=lambda u: {"w": torch.zeros(DIM)},
+                         optimizer=topt.sgd(0.0),
+                         make_batch=lambda ids, s: {"x": torch.zeros(len(ids), DIM)})
+
+
 def test_slot_loop_requires_capacity_controller():
     with pytest.raises(ValueError, match="capacity"):
-        SlotTrainLoop(OverlayController(_sim(Simulator, 4)),
-                      local_step=masked_local_step(_t_step),
-                      make_params=lambda u: {"w": torch.zeros(DIM)},
-                      optimizer=topt.sgd(0.0),
-                      make_batch=lambda ids, s: {"x": torch.zeros(len(ids), DIM)})
+        _bare_loop(OverlayController(_sim(Simulator, 4)))
+
+
+def test_slot_loop_requires_flat_resident_controller():
+    """The port keeps the population resident flat only."""
+    with pytest.raises(ValueError, match="flat_io=True"):
+        _bare_loop(OverlayController(_sim(Simulator, 4), capacity=6))
 
 
 # --------------------------------------------------------------------------
@@ -306,18 +319,25 @@ def test_slot_loop_requires_capacity_controller():
 # --------------------------------------------------------------------------
 
 CAPACITY, SEQ = 4, 32
+# the loop's model: tiny_lm at one layer keeps the JAX compile short
+LM_J_CFG, LM_CFG = j_tiny_lm(vocab=256, d_model=64, layers=1), \
+    t_tiny_lm(vocab=256, d_model=64, layers=1)
 LM_CHURN = [(1.5, "fail", 1), (2.5, "join", 50, 0)]
 
 
+_j_lm_init = jax.jit(lambda key: j_init_params(LM_J_CFG, key, dtype=jnp.float32))
+
+
+@functools.lru_cache(maxsize=None)
 def _lm_params(node_id):
-    return j_init_params(J_CFG, jax.random.PRNGKey(node_id), dtype=jnp.float32)
+    return _j_lm_init(jax.random.PRNGKey(node_id))
 
 
 def _lm_rows(node_ids, step):
     out = {}
     for k in ("tokens", "labels"):
         out[k] = np.stack([np.random.default_rng(abs(hash((u, step, k))) % 2**32)
-                           .integers(0, J_CFG.vocab_size, (1, SEQ)) for u in node_ids]
+                           .integers(0, LM_J_CFG.vocab_size, (1, SEQ)) for u in node_ids]
                           ).astype(np.int32)
     return out
 
@@ -330,7 +350,7 @@ def lm_runs():
     opt_j = jopt.sgd(0.05)
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
                                 global_batch=CAPACITY, seq_len=SEQ)
-    bundle = dfl_train_bundle(J_CFG, shape, make_local_mesh(1, 1), opt_j,
+    bundle = dfl_train_bundle(LM_J_CFG, shape, make_local_mesh(1, 1), opt_j,
                               dtype=jnp.float32, sync="none", masked=True)
     jloop = JSlotTrainLoop(
         JController(_sim(JSimulator, 3), capacity=CAPACITY, fuse="flat",
@@ -341,7 +361,7 @@ def lm_runs():
     tloop = SlotTrainLoop(
         OverlayController(_sim(Simulator, 3), capacity=CAPACITY, fuse="flat",
                           flat_io=True),
-        local_step=dfl_local_step(CFG, topt.sgd(0.05)),
+        local_step=dfl_local_step(LM_CFG, topt.sgd(0.05)),
         make_params=lambda u: tree_from_numpy(_np(_lm_params(u))),
         optimizer=topt.sgd(0.05),
         make_batch=lambda ids, s: {k: torch.from_numpy(v)
@@ -388,7 +408,7 @@ def test_joiner_row_is_its_donors_row():
         OverlayController(_sim(Simulator, 3), capacity=CAPACITY, fuse="flat",
                           flat_io=True),
         local_step=lambda p, o, b, m: (p, o, {"loss": torch.zeros(())}),
-        make_params=lambda u: init_params(CFG, torch.Generator().manual_seed(u)),
+        make_params=lambda u: init_params(LM_CFG, torch.Generator().manual_seed(u)),
         optimizer=topt.sgd(0.05), make_batch=lambda ids, s: {})
     loop.run(1)
     ctl = loop.controller
@@ -411,8 +431,6 @@ def test_reload_from_flat_serves_like_reload():
     """The port's reload_from_flat and the JAX reload of the same row
     generate the same tokens."""
     from repro.dist.flat import FlatSpec as JFlatSpec
-    from repro_torch.configs import tiny_lm as t_tiny_lm
-    from repro.launch.train import tiny_lm as j_tiny_lm
     jcfg, tcfg = j_tiny_lm(layers=2), t_tiny_lm(layers=2)
     rows = [_np(j_init_params(jcfg, jax.random.PRNGKey(i))) for i in range(2)]
     stacked = jax.tree.map(lambda *ls: np.stack(ls), *rows)
