@@ -8,17 +8,25 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` first.
 Phases, each printing its lines:
 
 1. environment: torch and CUDA versions, TF32 settings, the card;
-2. build: every kernel of the port (``flash_decode``, ``gather_mix``),
-   one ``nvcc`` per source, all started together, timed;
+2. build: every kernel of the port (``flash_decode``, ``gather_mix``,
+   ``mix_accumulate``, ``quantize_block``, ``dequantize_block``,
+   ``gather_mix_int8``), one ``nvcc`` per source, all started together,
+   timed;
 3. kernels: each kernel against its plain PyTorch version on the card:
    ``flash_decode`` at the CPU tests' shapes and at the ``decode_32k``
    width, with times; ``gather_mix`` over f32 and bf16, C from 2 to 200,
    ragged N, duplicate and tensor sources, and an output that is the
-   input;
+   input; ``quantize_block`` and ``dequantize_block`` bit for bit
+   (levels 127 and 7, blocks 128, 64 and 32, ragged N, all-zero blocks,
+   subnormal scales, exact .5 ties, the residual in place too);
+   ``gather_mix_int8`` for C from 2 to 200; ``mix_accumulate`` in both
+   forms, f32 and bf16, in place into acc and into x;
 4. small: the ``tiny_lm`` ``ServeLoop`` on the card against the same on
-   the CPU, token for token, and the ``tiny_lm`` ``SlotTrainLoop`` with a
+   the CPU, token for token; the ``tiny_lm`` ``SlotTrainLoop`` with a
    fail and a join on the card against the same on the CPU (alive
-   sequence equal, losses within 1e-4 relative);
+   sequence equal, losses within 1e-4 relative), codec-free, with
+   int8-block and with int4-block; one masked round of each of the five
+   codecs, card against CPU;
 5. slice: ``run_slots`` serving Llama-3.2-3B at full width and depth
    (random f32 weights from a seeded generator), with the launch counts
    of the kernels, then one ``decode_step`` with the kernel against the
@@ -30,7 +38,15 @@ Phases, each printing its lines:
    join, sgd, fedlay mixing through ``gather_mix``), with its checks,
    per-round times, a profiled round, and the kernel at the round's
    shape against its plain version and ``torch.matmul``;
-7. the ``kernels`` JSON line, the card's name and power limit, and the
+7. wire: the same round compressed, int8-block and then int4-block, at
+   Llama-3.2-3B width with the depth cut to what fits beside the
+   error-feedback residual and the wire, with its checks (launches per
+   round, dead rows, joiner, residual reset and keep, ``data_ptr``,
+   peak memory, the last round against the plain path), the codec-free
+   round's losses at the same depth beside the codec's, and each new
+   kernel at the round's shape against its plain version and a PyTorch
+   call;
+8. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result
@@ -402,6 +418,11 @@ def phase_slice(torch, F, card):
 TRAIN_CAPACITY, TRAIN_LIVE, TRAIN_SEQ, TRAIN_ROUNDS = 8, 7, 1024, 6
 TRAIN_CHURN = [(1.5, "fail", 3), (3.5, "join", 70, 0)]
 CHUNK = 1 << 24            # columns per chunk when the plain version runs
+#: What a phase's reckoning of device memory leaves out, as a share of it:
+#: the allocator's block rounding, the cuBLAS workspace, the schedule's
+#: tables, the batch, the gradient norm.  peak <= reckoned x (1 + margin)
+#: is checked.
+PEAK_MARGIN = 0.02
 
 
 def mix_tol(buf) -> dict:
@@ -458,13 +479,146 @@ def check_gather_mix(torch):
           f"max|buf|); in place == out of place bit for bit")
 
 
+def bits(t):
+    """A tensor's bit pattern, so that equality is bit for bit (-0 != 0)."""
+    import torch
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def wire_rows(torch, gen, B, N, block, levels):
+    """(B, N) f32 rows on the card, row magnitudes from 1e-3 to 10; when N
+    allows, row 0 holds an all-zero block, a block of exact .5 ties (max
+    levels / 2 gives the scale 0.5, and the entries are odd multiples of
+    0.25) and two blocks whose scale is subnormal (max 1e-37 and 2e-38)."""
+    x = torch.randn((B, N), generator=gen, device="cuda")
+    x *= torch.logspace(-3, 1, B, device="cuda")[:, None]
+    if N >= 4 * block:
+        k = torch.arange(block, device="cuda", dtype=torch.float32)
+        tie = (k % 7) * 0.5 + 0.25
+        tie[0] = levels / 2
+        lin = torch.linspace(-1, 1, block, device="cuda")
+        x[0, :block] = 0.0
+        x[0, block:2 * block] = tie * torch.where(k % 2 == 1, -1.0, 1.0)
+        x[0, 2 * block:3 * block] = 1e-37 * lin
+        x[0, 3 * block:4 * block] = 2e-38 * lin
+    return x
+
+
+def check_wire_kernels(torch):
+    """The wire codec's kernels and mix_accumulate against their plain
+    versions on the card.  quantize_block (q, scales, residual) and
+    dequantize_block bit for bit: IEEE arithmetic on both sides, with
+    subnormals kept.  gather_mix_int8 within 1e-6 x max|dequant| (f32
+    sums in another order).  mix_accumulate's init form bit for bit; its
+    accumulate form within one spacing of the result's dtype (the kernel
+    rounds one fused multiply-add, the plain version from float64)."""
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.ref import (dequantize_block_ref, gather_mix_int8_ref,
+                                         mix_accumulate_ref, quantize_block_ref)
+    from repro_torch.kernels.wire_codec import (dequantize_block, gather_mix_int8,
+                                                quantize_block)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = subnormal = 0
+    for levels in (127, 7):
+        for block in (128, 64, 32):
+            for B, N in [(1, 1), (3, 1000), (8, 4096 + 37), (5, 3 * 128 * 64)]:
+                x = wire_rows(torch, gen, B, N, block, levels)
+                qr, sr, rr = quantize_block_ref(x, block, levels, True)
+                q, s, r = quantize_block(x, block=block, levels=levels,
+                                         with_residual=True)
+                check(torch.equal(q, qr) and torch.equal(bits(s), bits(sr))
+                      and torch.equal(bits(r), bits(rr)),
+                      f"quantize_block differs at levels {levels}, block {block}, "
+                      f"({B}, {N})")
+                q2, s2 = quantize_block(x, block=block, levels=levels)
+                check(torch.equal(q2, qr) and torch.equal(bits(s2), bits(sr)),
+                      "quantize_block without the residual differs")
+                xi = x.clone()
+                out = quantize_block(xi, block=block, levels=levels, with_residual=True,
+                                     q_out=q2, scales_out=s2, residual_out=xi)
+                check(out[2] is xi and out[0] is q2 and torch.equal(bits(xi), bits(rr)),
+                      "quantize_block's residual in place differs")
+                subnormal += int(((sr.float() > 0) & (sr.float() < 1.1754944e-38)).sum())
+                d = dequantize_block(q, s, block=block)
+                check(torch.equal(bits(d), bits(dequantize_block_ref(q, s, block))),
+                      f"dequantize_block differs at block {block}")
+                cases += 1
+    # a row-strided view: the residual written over rows of a wider buffer
+    wide = torch.randn((4, 5000), generator=gen, device="cuda")
+    view = wide[:, 100:4196]
+    qr, sr, rr = quantize_block_ref(view, 128, 127, True)
+    q, s, r = quantize_block(view, with_residual=True, residual_out=view)
+    check(r is view and torch.equal(q, qr) and torch.equal(bits(view), bits(rr)),
+          "quantize_block on a row-strided view differs")
+
+    worst_g = 0.0
+    for block in (128, 64, 32):
+        for C, N in [(2, 1), (3, 130), (8, 4096), (8, 1001), (16, 2050), (32, 777),
+                     (33, 4096), (64, 3001), (200, 1000)]:
+            x = torch.randn((C, N), generator=gen, device="cuda")
+            q, s = quantize_block(x, block=block)
+            srcs, w = mix_table(torch, gen, C, 5)
+            ref = gather_mix_int8_ref(q, s, srcs, w, block)
+            tol = 1e-6 * dequantize_block_ref(q, s, block).abs().max().item()
+            for src in (srcs, srcs.cpu().numpy()):
+                out = gather_mix_int8(q, s, src, w, block=block)
+                torch.testing.assert_close(out, ref, rtol=0.0, atol=tol)
+                worst_g = max(worst_g, (out - ref).abs().max().item())
+            narrow = torch.empty((C, N), device="cuda")
+            check(gather_mix_int8(q, s, srcs, w, block=block, out=narrow) is narrow
+                  and torch.equal(narrow, out[:, :N]),
+                  "gather_mix_int8 into an N-wide out differs")
+
+    flips = 0
+    for dta, dtx in [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.bfloat16)]:
+        for B, N in [(1, 1), (3, 1001), (8, 4096), (7, 3 * 2 ** 16 + 5)]:
+            acc = torch.randn((B, N), generator=gen, device="cuda").to(dta)
+            x = torch.randn((B, N), generator=gen, device="cuda").to(dtx)
+            w = torch.rand((B,), generator=gen, device="cuda")
+            ref = mix_accumulate_ref(acc, x, w)
+            out = mix_accumulate(acc, x, w)
+            # one spacing of ref in its dtype: eps x 2^(e - 1) for |ref| = m x 2^e
+            exp = torch.frexp(ref.float()).exponent
+            step = torch.ldexp(torch.full_like(ref.float(), torch.finfo(dta).eps), exp - 1)
+            diff = (out.float() - ref.float()).abs()
+            check(bool((diff <= step).all()),
+                  f"mix_accumulate differs by more than one spacing ({dta}, {dtx})")
+            flips += int((diff > 0).sum())
+            inplace = acc.clone()
+            check(mix_accumulate(inplace, x, w, out=inplace) is inplace
+                  and torch.equal(bits(inplace), bits(out)),
+                  "mix_accumulate in place into acc differs")
+            if dta == dtx:
+                xi = x.clone()
+                check(torch.equal(bits(mix_accumulate(acc, xi, w, out=xi)), bits(out)),
+                      "mix_accumulate in place into x differs")
+            init = mix_accumulate(None, x, w)
+            check(torch.equal(bits(init), bits(mix_accumulate_ref(None, x, w))),
+                  "mix_accumulate's init form differs")
+            xi = x.clone()
+            check(torch.equal(bits(mix_accumulate(None, xi, w, out=xi)), bits(init)),
+                  "mix_accumulate's init form in place differs")
+    torch.cuda.synchronize()
+    print(f"kernels: quantize_block and dequantize_block on {cases} cases (levels "
+          f"127 and 7, blocks 128, 64, 32, ragged N, all-zero, tie and "
+          f"subnormal-scale blocks: {subnormal} subnormal scales) and a "
+          f"row-strided view: q, scales, residual (in place too) and decode bit for "
+          f"bit; gather_mix_int8 on C in 2..200, blocks 128, 64, 32, ragged N, numpy "
+          f"and tensor sources: max abs err {worst_g:.3e} (tol 1e-6 x max|dequant|); "
+          f"mix_accumulate f32, bf16 and bf16 x into f32, in place into acc and x: "
+          f"init form bit for bit, accumulate form within one spacing "
+          f"({flips} elements one spacing off)")
+
+
 def slot_loop(torch, cfg, capacity, live, seq, device, seed, draw_on=None,
-              mixer_factory=None, timed_step=None, loop_cls=None):
+              mixer_factory=None, timed_step=None, loop_cls=None, codec=None):
     """A SlotTrainLoop over ``cfg`` on ``device``: ``live`` clients of
     ``capacity`` slots, sgd(0.05), fedlay over 2 spaces with resident flat
-    parameters; parameters from generators on ``draw_on`` (default
-    ``device``) seeded by node, one sequence of ``seq`` tokens a client
-    and round from numpy keyed by (node, round)."""
+    parameters, compressed by ``codec`` when given; parameters from
+    generators on ``draw_on`` (default ``device``) seeded by node, one
+    sequence of ``seq`` tokens a client and round from numpy keyed by
+    (node, round)."""
     import numpy as np
     from repro_torch.core.ndmp import Simulator
     from repro_torch.dist.flat import tree_map
@@ -488,32 +642,76 @@ def slot_loop(torch, cfg, capacity, live, seq, device, seed, draw_on=None,
                     probe_period=1.0, seed=0)
     sim.seed_network(list(range(live)))
     ctl = OverlayController(sim, capacity=capacity, fuse="flat", flat_io=True,
-                            mixer_factory=mixer_factory)
+                            codec=codec, mixer_factory=mixer_factory)
     step = dfl_local_step(cfg, sgd(0.05))
     return (loop_cls or SlotTrainLoop)(
         ctl, local_step=timed_step(step) if timed_step else step,
         make_params=make_params, optimizer=sgd(0.05), make_batch=make_batch)
 
 
-def small_train(torch):
+def small_train(torch, codec=None):
     """tiny_lm under SlotTrainLoop on the card and on the CPU, the same
-    parameters, data and churn: the same alive sequence, and each
-    round's loss within 1e-4 relative (f32 on both; the card sums in
-    other orders, over 6 rounds)."""
+    parameters, data and churn, codec-free or compressed by ``codec``: the
+    same alive sequence, and each round's loss within 1e-4 relative (f32
+    on both; the card sums in other orders, over 6 rounds)."""
     from repro_torch.configs import tiny_lm
     from repro_torch.overlay.events import ChurnTrace
     runs = []
     for device in ("cpu", "cuda"):
-        loop = slot_loop(torch, tiny_lm(), 8, 7, 64, device, seed=0, draw_on="cpu")
+        loop = slot_loop(torch, tiny_lm(), 8, 7, 64, device, seed=0, draw_on="cpu",
+                         codec=codec)
         recs = loop.run(6, trace=ChurnTrace.scripted(TRAIN_CHURN))
         runs.append(([r.num_alive for r in recs], [r.loss for r in recs]))
     (cpu_alive, cpu_loss), (gpu_alive, gpu_loss) = runs
     check(cpu_alive == gpu_alive, f"alive sequences differ: {cpu_alive} vs {gpu_alive}")
     err = max(abs(a - b) / abs(b) for a, b in zip(gpu_loss, cpu_loss))
-    check(err <= 1e-4, f"tiny_lm losses differ by {err:.3e} relative")
-    print(f"small: tiny_lm SlotTrainLoop, 8 slots, 6 rounds with a fail and a "
-          f"join: card == CPU alive sequence {gpu_alive}, max loss difference "
-          f"{err:.3e} relative (tol 1e-4)")
+    check(err <= 1e-4, f"tiny_lm losses differ by {err:.3e} relative ({codec})")
+    print(f"small: tiny_lm SlotTrainLoop{'' if codec is None else ' with ' + codec}, "
+          f"8 slots, 6 rounds with a fail and a join: card == CPU alive sequence "
+          f"{gpu_alive}, max loss difference {err:.3e} relative (tol 1e-4)")
+
+
+def small_codec_rounds(torch):
+    """One masked round of each codec over the same (8, 10000) buffer,
+    residual, mask and edge mask on the card and on the CPU: the output
+    within 1e-6 x max|buf| (the gathers sum in other orders), the
+    error-feedback residual bit for bit (the same quantization, or the
+    same top-k set: |x| has no ties here)."""
+    import numpy as np
+    from repro_torch.core.mixing import build_permute_schedule
+    from repro_torch.dist.sync import global_mixer
+    from repro_torch.wire.codec import WIRE_CODECS
+    rng = np.random.default_rng(8)
+    C, N = 8, 10000
+    X = rng.normal(size=(C, N)).astype(np.float32)
+    R = (rng.normal(size=(C, N)) * 0.01).astype(np.float32)
+    mask = np.ones(C, np.float32)
+    mask[[2, 5]] = 0.0
+    em = (rng.random((C, 4)) > 0.2).astype(np.float32)
+    sched = build_permute_schedule(C, 2)
+    worst = {}
+    for name, codec in WIRE_CODECS.items():
+        outs = []
+        for device in ("cpu", "cuda"):
+            mixer = global_mixer("fedlay", sched, masked=True, codec=name, flat_io=True)
+            buf = torch.from_numpy(X).to(device)
+            ws = codec.workspace(C, N, buf.device)
+            args = (buf, mask) + ((torch.from_numpy(R.copy()).to(device),)
+                                  if codec.error_feedback else ())
+            res = mixer(*args, edge_mask=em, workspace=ws)
+            outs.append(res if codec.error_feedback else (res, None))
+        (out_c, res_c), (out_g, res_g) = outs
+        err = (out_g.cpu() - out_c).abs().max().item()
+        check(err <= 1e-6 * float(np.abs(X).max()),
+              f"the {name} round differs between card and CPU by {err}")
+        if res_c is not None:
+            check(torch.equal(bits(res_g.cpu()), bits(res_c)),
+                  f"the {name} residual differs between card and CPU")
+        worst[name] = err
+    print("small: one masked round with an edge mask, (8, 10000), card vs CPU: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+          + " max abs err (tol 1e-6 x max|buf|); int8-block, int4-block and topk "
+          "residual bit for bit")
 
 
 def flat_size(torch, cfg) -> int:
@@ -534,17 +732,25 @@ def act_bytes(cfg, seq: int) -> int:
     return 4 * seq * cfg.padded_vocab * 4 + cfg.num_layers * per_layer
 
 
-def train_depth(torch, base):
-    """The most layers whose reckoned bytes, (population + mixer output)
-    x C x N x 4 + one gradient row + activations, stay within 80 % of
-    the card's memory."""
+def local_step_bytes(cfg, N: int) -> int:
+    """One client's local step beyond the resident buffers, reckoned: its
+    activations (act_bytes) with its gradient row filling in during the
+    backward pass, or after it the gradient and the update, two rows;
+    the larger."""
+    return max(act_bytes(cfg, TRAIN_SEQ) + 4 * N, 2 * 4 * N)
+
+
+def fit_depth(torch, base, resident_of):
+    """The most layers whose reckoned bytes, ``resident_of(N)`` + the
+    local step's (local_step_bytes), stay within 80 % of the card's
+    memory.  Returns (cfg, N, resident, reckoned, limit)."""
     limit = 0.8 * torch.cuda.get_device_properties(0).total_memory
     best = None
     for layers in range(1, base.num_layers + 1):
         cfg = dataclasses.replace(base, num_layers=layers)
         N = flat_size(torch, cfg)
-        resident = (2 * TRAIN_CAPACITY + 1) * N * 4
-        total = resident + act_bytes(cfg, TRAIN_SEQ)
+        resident = resident_of(N)
+        total = resident + local_step_bytes(cfg, N)
         if total > limit:
             break
         best = (cfg, N, resident, total)
@@ -566,14 +772,14 @@ def phase_train(torch, card):
     from repro_torch.runtime.loop import SlotTrainLoop
 
     base = REGISTRY["llama3.2-3b"]
-    cfg, N, resident, reckoned, limit = train_depth(torch, base)
     C = TRAIN_CAPACITY
+    cfg, N, resident, reckoned, limit = fit_depth(torch, base, lambda n: 2 * C * n * 4)
     print(f"train: {base.name} at full width (d_model {cfg.d_model}, heads "
           f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.resolved_head_dim}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied) cut to "
           f"{cfg.num_layers} of {base.num_layers} layers: the most whose "
-          f"reckoned bytes, {resident / 1e9:.2f} GB resident ((2 x {C} + 1) x N "
-          f"x 4, N = {N}) + {(reckoned - resident) / 1e9:.2f} GB activations, "
+          f"reckoned bytes, {resident / 1e9:.2f} GB resident (2 x {C} x N x 4, "
+          f"N = {N}) + {(reckoned - resident) / 1e9:.2f} GB for the local step, "
           f"stay within 80 % of the card's {limit / 0.8 / 1e9:.2f} GB; {C} slots, "
           f"{TRAIN_LIVE} live, 1 x {TRAIN_SEQ} tokens a client, sgd lr 0.05")
 
@@ -659,13 +865,16 @@ def phase_train(torch, card):
     check(len(joins) == 1 and dead_checked > 0, "no join or no dead row checked")
     check({loop.params.data_ptr(), loop._spare.data_ptr()} == buffers,
           "a resident buffer was reallocated")
+    check(peak <= reckoned * (1 + PEAK_MARGIN),
+          f"peak memory {peak / 1e9:.2f} GB above the reckoned {reckoned / 1e9:.2f} GB "
+          f"+ {PEAK_MARGIN:.0%}")
     print(f"train: gather_mix launches {launches} = {TRAIN_ROUNDS} rounds; dead "
           f"rows unchanged bit for bit ({dead_checked} row-rounds); joiner "
           f"{joins[0][0]} (slot {joins[0][1]}) == donor {joins[0][2]} (slot "
           f"{joins[0][3]}) bit for bit as the plan landed; 2 resident buffers "
           f"(the sgd state is empty), data_ptr unchanged over {TRAIN_ROUNDS} "
-          f"rounds; peak memory {peak / 1e9:.2f} GB against {reckoned / 1e9:.2f} "
-          f"GB reckoned ({card})")
+          f"rounds; peak memory {peak / 1e9:.2f} GB <= {reckoned / 1e9:.2f} GB "
+          f"reckoned + {PEAK_MARGIN:.0%} ({card})")
 
     # the last round's output against the plain version, chunk by chunk
     # (its (C, K1, N) gather does not fit at full N)
@@ -734,6 +943,345 @@ def phase_train(torch, card):
             "library_ms": library_ms}
 
 
+# --------------------------------------------------------------------------
+# The wire-compressed DFL round
+# --------------------------------------------------------------------------
+
+WIRE_CODECS_RUN = ("int8-block", "int4-block")
+
+
+def wire_resident(torch, codec, C, N) -> int:
+    """The wire round's resident bytes: population, mixer output (which
+    also holds the error-feedback operand buf + residual until the round
+    writes it) and the residual, 3 x C x N x 4, plus the codec's wire
+    buffers (its workspace, sized on the meta device)."""
+    ws = codec.workspace(C, N, "meta")
+    return 3 * C * N * 4 + sum(t.numel() * t.element_size() for t in ws.values())
+
+
+def phase_wire(torch, card, name):
+    """The compressed DFL round at Llama-3.2-3B width under ``name``, with
+    its checks, the codec-free losses at the same depth, and the new
+    kernels' times at the round's shape.  Returns the kernels' entries
+    (by name) and the losses."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.dist import sync
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.gather_mix import gather_mix
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.ref import (dequantize_block_ref, gather_mix_int8_ref,
+                                         mix_accumulate_ref, quantize_block_ref,
+                                         round_matrix)
+    from repro_torch.kernels.wire_codec import (dequantize_block, gather_mix_int8,
+                                                quantize_block)
+    from repro_torch.overlay.events import ChurnTrace
+    from repro_torch.overlay.runtime import joiner_donors
+    from repro_torch.runtime.loop import SlotTrainLoop
+    from repro_torch.runtime.slots import plan_reset_slots
+    from repro_torch.wire import codec as codec_mod
+    from repro_torch.wire.codec import get_codec
+
+    codec = get_codec(name)
+    block, levels, C = codec.block, codec.levels, TRAIN_CAPACITY
+    base = REGISTRY["llama3.2-3b"]
+    cfg, N, resident, reckoned, limit = fit_depth(
+        torch, base, lambda n: wire_resident(torch, codec, C, n))
+    print(f"wire: {name} round at full width cut to {cfg.num_layers} of "
+          f"{base.num_layers} layers: the most whose reckoned bytes, "
+          f"{resident / 1e9:.2f} GB resident (population, mixer output and "
+          f"residual, 3 x {C} x N x 4, N = {N}, and the wire, "
+          f"{(resident - 12 * C * N) / 1e9:.2f} GB) + "
+          f"{(reckoned - resident) / 1e9:.2f} GB for the local step, stay within "
+          f"80 % of the card's {limit / 0.8 / 1e9:.2f} GB")
+    # the codec-free round at the same depth, from the same population and
+    # batches, for its losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop = slot_loop(torch, cfg, C, TRAIN_LIVE, TRAIN_SEQ, "cuda", seed=1000)
+    free_losses = [r.loss for r in loop.run(TRAIN_ROUNDS, trace=ChurnTrace.scripted(
+        TRAIN_CHURN))]
+    del loop
+
+    kernels = (quantize_block, dequantize_block, gather_mix_int8, mix_accumulate,
+               gather_mix, flash_decode)
+    times = {"local": [], "mix": []}
+    seen = {"joins": [], "resets": 0, "kept": 0, "dead": 0}
+    last = {}
+
+    def timed_step(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times["local"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def mixer_factory(sched):
+        mixer = sync.global_mixer("fedlay", sched, masked=True, codec=name, flat_io=True)
+
+        def run(buf, mask, residual, **kw):
+            masked = np.flatnonzero(np.asarray(mask) == 0).tolist()
+            kept = {r: residual[r].to("cpu", copy=True) for r in masked}
+            if last.get("snapshot"):
+                last["res_in"] = residual.to("cpu", copy=True)
+            last["mask"] = np.asarray(mask).copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mixer(buf, mask, residual, **kw)
+            torch.cuda.synchronize()
+            times["mix"].append((time.perf_counter() - t0) * 1e3)
+            for r, row in kept.items():
+                check(torch.equal(bits(residual[r].cpu()), bits(row)),
+                      f"the residual of masked row {r} changed")
+                seen["kept"] += 1
+            return out
+        return run
+
+    class CheckedLoop(SlotTrainLoop):
+        """Holds each joiner's row to its donor's and the reset residual
+        rows to zero as the plan lands."""
+
+        def _apply_plan(self, plan):
+            joined, left = super()._apply_plan(plan)
+            ctl = self.controller
+            donors = joiner_donors(ctl.alive_schedule, ctl.alive, joined,
+                                   tuple(u for u, _ in plan.survivors))
+            for u in joined:
+                a, b = ctl.slots.slot_of[u], ctl.slots.slot_of[donors[u]]
+                check(torch.equal(self.params[a], self.params[b]),
+                      f"joiner {u}'s row differs from donor {donors[u]}'s")
+                seen["joins"].append((u, a, donors[u], b))
+            for slot in plan_reset_slots(plan):
+                check(not bool(self.residual[slot].any()),
+                      f"the residual row of slot {slot} was not reset")
+                seen["resets"] += 1
+            return joined, left
+
+    # record the neighbour table and the self weights as they reach the kernels
+    real = {"int8": codec_mod.gather_mix_int8, "gm": codec_mod.gather_mix,
+            "acc": sync.mix_accumulate}
+
+    def rec_int8(q, s, srcs, weights, **kw):
+        last.update(srcs=srcs, weights=weights)
+        return real["int8"](q, s, srcs, weights, **kw)
+
+    def rec_gm(buf, srcs, weights, **kw):
+        last.update(srcs=srcs, weights=weights)
+        return real["gm"](buf, srcs, weights, **kw)
+
+    def rec_acc(acc, x, w, **kw):
+        last["self_w"] = w
+        return real["acc"](acc, x, w, **kw)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = slot_loop(torch, cfg, C, TRAIN_LIVE, TRAIN_SEQ, "cuda", seed=1000,
+                     codec=name, mixer_factory=mixer_factory, timed_step=timed_step,
+                     loop_cls=CheckedLoop)
+    torch.cuda.synchronize()
+    print(f"wire: {name}: population ({C}, {N}) f32 and its residual, "
+          f"{TRAIN_LIVE} clients drawn in {time.perf_counter() - t0:.1f} s")
+    ws = loop.workspace
+    ptrs = ({loop.params.data_ptr(), loop._spare.data_ptr()},
+            {k: t.data_ptr() for k, t in ws.items()}, loop.residual.data_ptr())
+    trace = ChurnTrace.scripted(TRAIN_CHURN)
+    ctl = loop.controller
+    counts = []
+    codec_mod.gather_mix_int8, codec_mod.gather_mix = rec_int8, rec_gm
+    sync.mix_accumulate = rec_acc
+    try:
+        for k in kernels:
+            k.launches = 0
+        for r in range(TRAIN_ROUNDS):
+            last["snapshot"] = r == TRAIN_ROUNDS - 1
+            before = {s: loop.params[s].to("cpu", copy=True) for s in range(C)
+                      if ctl.slots.node_at(s) is None
+                      or ctl.slots.node_at(s) in {e[2] for e in TRAIN_CHURN}}
+            start = [k.launches for k in kernels]
+            rec = loop.run(1, trace=trace)[-1]
+            counts.append([k.launches - a for k, a in zip(kernels, start)])
+            for s, row in before.items():
+                if ctl.slots.node_at(s) is None:
+                    check(torch.equal(loop.params[s].cpu(), row),
+                          f"dead slot {s} changed in round {r}")
+                    seen["dead"] += 1
+            print(f"wire: {name} round {r}: {rec.num_alive} alive (joined "
+                  f"{list(rec.joined)}, left {list(rec.left)}), loss {rec.loss:.6f}; "
+                  f"local step {times['local'][-1]:.1f} ms, mixing "
+                  f"{times['mix'][-1]:.2f} ms")
+            check(np.isfinite(rec.loss), f"round {r} loss is not finite")
+        launches = {k.__name__: k.launches for k in kernels}
+    finally:
+        codec_mod.gather_mix_int8, codec_mod.gather_mix = real["int8"], real["gm"]
+        sync.mix_accumulate = real["acc"]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r.loss for r in loop.records]
+    want = ([1, 0, 1, 1, 0, 0] if name == "int8-block" else [1, 1, 0, 1, 1, 0])
+    for r, got in enumerate(counts):
+        check(got == want, f"round {r} launched {dict(zip((k.__name__ for k in kernels), got))}")
+    check([r.num_alive for r in loop.records] == [7, 6, 6, 7, 7, 7],
+          f"alive sequence {[r.num_alive for r in loop.records]}")
+    check(len(seen["joins"]) == 1 and seen["dead"] > 0 and seen["resets"] >= 2
+          and seen["kept"] > 0, f"churn checks did not all run: {seen}")
+    check(({loop.params.data_ptr(), loop._spare.data_ptr()},
+           {k: t.data_ptr() for k, t in ws.items()}, loop.residual.data_ptr()) == ptrs,
+          "a resident buffer was reallocated")
+    check(peak <= reckoned * (1 + PEAK_MARGIN),
+          f"peak memory {peak / 1e9:.2f} GB above the reckoned {reckoned / 1e9:.2f} GB "
+          f"+ {PEAK_MARGIN:.0%}")
+    per_round = ", ".join(f"{k.__name__} {n}" for k, n in zip(kernels, want) if n)
+    j = seen["joins"][0]
+    print(f"wire: {name} launches a round: {per_round} in each of {TRAIN_ROUNDS} rounds "
+          f"(the others 0); dead rows unchanged bit for bit ({seen['dead']} row-rounds); "
+          f"joiner {j[0]} (slot {j[1]}) == donor {j[2]} (slot {j[3]}) bit for bit and "
+          f"{seen['resets']} residual rows of joiners and leavers zero as each plan "
+          f"landed; masked rows' residual unchanged ({seen['kept']} row-rounds); "
+          f"{2 + len(ws) + 1} resident buffers (population, spare, residual, "
+          f"{', '.join(ws)}) kept their data_ptr; peak memory {peak / 1e9:.2f} GB <= "
+          f"{reckoned / 1e9:.2f} GB reckoned + {PEAK_MARGIN:.0%} ({card})")
+
+    # the last round against the plain path, column chunk by chunk
+    out, inp, res_out = loop.params, loop._spare, loop.residual
+    res_in, mask = last["res_in"], last["mask"]
+    srcs, weights, self_w = last["srcs"], last["weights"], last["self_w"]
+    live = torch.as_tensor(mask > 0, device="cuda")
+    err = scale = err_g = err_a = 0.0
+    for a in range(0, N, CHUNK):
+        b = min(a + CHUNK, N)
+        x = inp[:, a:b]
+        rin = res_in[:, a:b].to("cuda")
+        qr, sr, rr = quantize_block_ref(x + rin, block, levels, True)
+        q_bad = int((ws["q"][:, a:b] != qr).sum())
+        s_bad = int((bits(ws["scales"][:, a // block:b // block]) != bits(sr)).sum())
+        check(q_bad == 0 and s_bad == 0,
+              f"{q_bad} q and {s_bad} scales differ from the plain version in "
+              f"columns {a}..{b}")
+        check(torch.equal(bits(res_out[:, a:b]),
+                          bits(torch.where(live[:, None], rr, rin))),
+              f"the residual differs from the plain version in columns {a}..{b}")
+        g = gather_mix_int8_ref(qr, sr, srcs, weights, block)
+        ref = torch.where(live[:, None], mix_accumulate_ref(g, x, self_w), x)
+        err = max(err, (out[:, a:b] - ref).abs().max().item())
+        scale = max(scale, x.abs().max().item())
+        if name == "int8-block":
+            got = gather_mix_int8(qr, sr, srcs, weights, block=block)
+            err_g = max(err_g, (got - g).abs().max().item())
+            acc = mix_accumulate(got, x.contiguous(), self_w)
+            err_a = max(err_a, (acc - mix_accumulate_ref(got, x, self_w)).abs().max().item())
+        else:
+            err_g = max(err_g, (dequantize_block(qr, sr, block=block)
+                                - dequantize_block_ref(qr, sr, block)).abs().max().item())
+        del rin, qr, sr, rr, g, ref
+    del res_in
+    check(err <= 1e-6 * scale, f"the {name} round differs from the plain path by {err}")
+    print(f"wire: {name} round {TRAIN_ROUNDS - 1} against the plain path over column "
+          f"chunks of {CHUNK}: output max abs err {err:.3e} <= 1e-6 x max|buf| "
+          f"{scale:.3f}; q, scales and residual bit for bit")
+
+    # where a round's time goes, against the codec-free round on the same buffers
+    steady = range(3, TRAIN_ROUNDS)
+    local = sum(times["local"][i] for i in steady) / len(steady)
+    mix = sum(times["mix"][i] for i in steady) / len(steady)
+    residual = loop.residual
+    mixer = sync.global_mixer("fedlay", ctl.schedule, masked=True, codec=name,
+                              flat_io=True)
+    free = sync.global_mixer("fedlay", ctl.schedule, masked=True, fuse="flat",
+                             flat_io=True)
+    free_ms = host_ms(torch, lambda: free(inp, mask, out=out), 5)
+    print(f"breakdown: {name} DFL round at {cfg.num_layers} layer(s), {TRAIN_LIVE} "
+          f"live: over rounds 3-{TRAIN_ROUNDS - 1} local step {local:.1f} ms and mixing "
+          f"{mix:.2f} ms a round; the codec-free gather_mix round on the same buffers "
+          f"{free_ms:.2f} ms ({card})")
+    wall, by_kernel = profiled(torch, lambda: mixer(inp, mask, residual, out=out,
+                                                    workspace=ws))
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print(f"breakdown: {name} mixing round profiled: host {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle share "
+          f"{100 * (1 - busy / wall):.1f} %; kernels (ms): "
+          + "; ".join(f"{k[:40]} {ms:.3f}" for k, ms in top) + f" ({card})")
+
+    # each new kernel at the round's own shape (the loop's buffers are
+    # scratch from here on)
+    entries = {}
+    NB = ws["scales"].shape[1]
+    Nq = NB * block
+    q, s = ws["q"], ws["scales"]
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+    def chunked(fn):
+        def run():
+            for a in range(0, N, CHUNK):
+                fn(a, min(a + CHUNK, N))
+        return run
+
+    def entry(kname, err_k, ms, plain_ms, lib_ms, nbytes, ops, replaces, what):
+        bound_ms, bound_by = bound(nbytes, ops)
+        print(f"wire: {kname} f32 at the round's shape C = {C}, N = {N}: device time "
+              f"per call: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (over column "
+              f"chunks of {CHUNK}), bound {bound_ms:.3f} ms ({bound_by}), library "
+              + ("none" if lib_ms is None else f"{lib_ms:.3f} ms ({what})")
+              + f"; max abs err {err_k:.3e} ({card})")
+        entries[kname] = {
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kname}.cu", "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": err_k, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+    if name == "int8-block":
+        ms = device_ms(torch, [lambda: quantize_block(
+            inp, block=block, levels=levels, with_residual=True, q_out=q,
+            scales_out=s, residual_out=residual)], 5)
+        plain = device_ms(torch, [chunked(lambda a, b: quantize_block_ref(
+            inp[:, a:b], block, levels, True))], 1)
+        entry("quantize_block", 0.0, ms, plain, None, (4 + 4) * C * N + C * Nq + 2 * C * NB,
+              0, "src/repro/kernels/wire_codec.py:95", None)
+        W = round_matrix(C, srcs, weights)
+        ms = device_ms(torch, [lambda: gather_mix_int8(q, s, srcs, weights, block=block,
+                                                       out=out)], 5)
+        plain = device_ms(torch, [chunked(lambda a, b: gather_mix_int8_ref(
+            q[:, a:b], s[:, a // block:b // block], srcs, weights, block))], 1)
+        deq3 = out.view(C, NB, block)
+
+        def library():
+            torch.mul(q.view(C, NB, block), s.float()[..., None], out=deq3)
+            torch.matmul(W, out, out=residual)
+        lib = device_ms(torch, [library], 3)
+        entry("gather_mix_int8", err_g, ms, plain, lib, C * Nq + 2 * C * NB + 4 * C * N,
+              2 * C * C * N, "src/repro/kernels/wire_codec.py:233",
+              "a dequantize by torch.mul, then torch.matmul(W, ·)")
+        sw = self_w.float().contiguous()
+        ms = device_ms(torch, [lambda: mix_accumulate(out, inp, sw, out=out)], 5)
+        plain = device_ms(torch, [chunked(lambda a, b: mix_accumulate_ref(
+            out[:, a:b], inp[:, a:b], sw))], 1)
+        lib = device_ms(torch, [lambda: torch.addcmul(out, inp, sw[:, None], out=out)], 5)
+        entry("mix_accumulate", err_a, ms, plain, lib, 12 * C * N + 4 * C, 2 * C * N,
+              "src/repro/kernels/weighted_mix.py:150", "torch.addcmul")
+    else:
+        ms = device_ms(torch, [lambda: dequantize_block(q, s, block=block, out=out)], 5)
+        plain = device_ms(torch, [chunked(lambda a, b: dequantize_block_ref(
+            q[:, a:b], s[:, a // block:b // block], block))], 1)
+        deq3 = out.view(C, NB, block)
+        lib = device_ms(torch, [lambda: torch.mul(q.view(C, NB, block),
+                                                  s.float()[..., None], out=deq3)], 5)
+        entry("dequantize_block", err_g, ms, plain, lib, C * Nq + 2 * C * NB + 4 * C * Nq,
+              C * Nq, "src/repro/kernels/wire_codec.py:145", "torch.mul")
+    uniform = float(np.log(cfg.vocab_size))
+    print(f"wire: losses at {cfg.num_layers} layer(s), {name} against codec-free, "
+          f"round by round (ln vocab = {uniform:.4f}): " + "; ".join(
+              f"{a:.6f} / {b:.6f}" for a, b in zip(losses, free_losses)))
+    return entries, losses, free_losses
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -765,13 +1313,27 @@ def main() -> int:
 
     phase_kernels(torch, F, card)
     check_gather_mix(torch)
+    check_wire_kernels(torch)
     phase_small(torch)
     small_train(torch)
+    for codec in WIRE_CODECS_RUN:
+        small_train(torch, codec)
+    small_codec_rounds(torch)
     serve_entry = phase_slice(torch, F, card)
     gc.collect()
     torch.cuda.empty_cache()
     train_entry = phase_train(torch, card)
-    print(json.dumps({"kernels": [serve_entry, train_entry]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire = {}
+    for codec in WIRE_CODECS_RUN:
+        entries, _, _ = phase_wire(torch, card, codec)
+        wire.update(entries)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"kernels": [serve_entry, train_entry] + [
+        wire[k] for k in ("mix_accumulate", "quantize_block", "dequantize_block",
+                          "gather_mix_int8")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

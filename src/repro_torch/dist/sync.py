@@ -15,11 +15,17 @@ into a mixing round over the client axis:
   skips, unreachable edges) only rewrites the weight table.
 * ``fuse=None`` / ``"tree"`` — the per-leaf walk over the tree, the
   reference's unfused path.
+* ``codec=`` (:mod:`repro_torch.wire.codec`; implies ``fuse="flat"``)
+  — the wire-compressed round (``sync.py:553-570``): the population is
+  encoded once a round, the neighbour term mixes the encoded form
+  through the codec's ``gather`` (int8-block: ``gather_mix_int8``) and
+  the self term uses the true rows through ``mix_accumulate``.  An
+  error-feedback codec encodes ``buf + residual`` and carries the
+  residual.
 
 The ``shard_map`` mixers (``fedlay_mix``, ``make_mixer``) wait for
-ROADMAP.md Queue 1 item 10 and the wire codecs for item 7.
-:func:`sync_bytes_per_client` is the paper's per-round communication
-accounting (§IV-D).
+ROADMAP.md Queue 1 item 10.  :func:`sync_bytes_per_client` is the
+paper's per-round communication accounting (§IV-D).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import torch
 
 from ..core.mixing import PermuteSchedule, check_group_size
 from ..kernels.gather_mix import gather_mix
+from ..kernels.mix_accumulate import mix_accumulate
+from ..wire.codec import get_codec
 from .flat import FlatSpec, tree_flatten, tree_map
 
 #: Sync strategies understood by :func:`global_mixer`.
@@ -52,13 +60,14 @@ def check_fuse(fuse: Optional[str]) -> Optional[str]:
 
 def resolve_wire(codec, fuse: Optional[str]):
     """Normalize the ``(codec, fuse)`` pair shared by the mixing entry
-    points.  The port has no wire codec yet: any codec raises."""
+    points.  Codecs work on the flat row buffer, so any codec — the
+    exact ``"none"`` too — implies ``fuse="flat"``; without one the fuse
+    mode passes through."""
     fuse = check_fuse(fuse)
+    codec = get_codec(codec)
     if codec is not None:
-        raise NotImplementedError(
-            f"wire codec {codec!r}: the codecs are not ported yet "
-            f"(ROADMAP.md Queue 1 item 7)")
-    return None, fuse
+        fuse = "flat"
+    return codec, fuse
 
 
 def ring_schedule(num_clients: int) -> PermuteSchedule:
@@ -82,6 +91,11 @@ def ring_schedule(num_clients: int) -> PermuteSchedule:
     return PermuteSchedule(num_clients=n, num_spaces=1, perms=(pred, succ),
                            weights=weights.astype(np.float32),
                            self_weight=self_w.astype(np.float32))
+
+
+def _rows(flags: torch.Tensor):
+    """The row indices where a (C,) bool tensor is true, on the host."""
+    return torch.nonzero(flags.cpu()).flatten().tolist()
 
 
 def _row_shape(leaf: torch.Tensor):
@@ -111,8 +125,19 @@ def global_mixer(strategy: str,
     ``fuse="flat"``) makes the mixer take and return that buffer itself,
     and adds a keyword-only ``out``: the (C, N) buffer the round writes
     (allocated when None; it may be the input, for an in-place round).
+
+    ``codec`` compresses the fedlay/ring round (see the module
+    docstring); allreduce and none ignore it.  For an error-feedback
+    codec the signature grows a trailing (C, N) f32 ``residual`` and the
+    mixer returns ``(params, residual)``: the residual is updated in
+    place, and masked-out rows keep theirs.  A codec's flat_io mixer also
+    takes a keyword-only ``workspace``, the codec's
+    :meth:`~repro_torch.wire.codec.WireCodec.workspace` for the round's
+    wire.  With an error-feedback codec ``out`` holds ``buf + residual``
+    until the round writes it, and with any lossy codec it must not be
+    the input.
     """
-    _, fuse = resolve_wire(codec, fuse)
+    codec, fuse = resolve_wire(codec, fuse)
     if flat_io and (fuse != "flat" or strategy not in ("fedlay", "ring")):
         raise ValueError(
             "flat_io mixers operate on the raveled buffer: they "
@@ -180,29 +205,90 @@ def global_mixer(strategy: str,
         return c["self_w"] / safe, eff / safe[:, None], ok
 
     if fuse == "flat":
-        def round_flat(buf, table, ok=None, out=None):
-            """One fused round on the (C, N) buffer (``sync.py:542``):
-            one gather_mix over the full table, identity rows where
-            ~ok."""
+        ef = codec is not None and codec.error_feedback
+
+        def round_flat(buf, table, ok=None, out=None, residual=None, keep=None,
+                       workspace=None):
+            """One fused round on the (C, N) buffer (``sync.py:542``).
+            Codec-free, or with an exact codec: one gather over the full
+            table, identity rows where ~ok.  With a lossy codec: the
+            neighbours' columns mix the encoded buffer through the
+            codec's gather into ``out``, the self column adds the true
+            rows with mix_accumulate, and rows where ~ok are copied from
+            ``buf``.  EF encodes ``buf + residual`` (formed in ``out``)
+            and writes the fresh residual into ``residual``'s rows,
+            except those where ``keep`` is False."""
+            srcs = on(buf.device)["srcs"]
+            if codec is None or codec.exact:
+                if ok is not None:
+                    ident = torch.zeros_like(table)
+                    ident[:, 0] = 1.0
+                    table = torch.where(ok[:, None], table, ident)
+                if codec is None:
+                    return gather_mix(buf, srcs, table, out=out)
+                return codec.gather(codec.encode(buf, workspace), srcs, table,
+                                    buf.shape[1], out=out, ws=workspace)
+            if out is None:
+                out = torch.empty_like(buf, dtype=torch.float32)
+            elif out.data_ptr() == buf.data_ptr():
+                raise ValueError("a lossy codec's round reads buf after it "
+                                 "writes out: out must not be buf")
+            if ef:
+                operand = torch.add(buf, residual, out=out)
+                wire, fresh = codec.encode_ef(operand, workspace, residual_out=operand)
+                rows = range(C) if keep is None else _rows(keep)
+                for r in rows:
+                    residual[r].copy_(fresh[r])
+            else:
+                wire = codec.encode(buf, workspace)
+            out = codec.gather(wire, srcs[:, 1:], table[:, 1:], buf.shape[1],
+                               out=out, ws=workspace)
+            mix_accumulate(out, buf, table[:, 0], out=out)
             if ok is not None:
-                ident = torch.zeros_like(table)
-                ident[:, 0] = 1.0
-                table = torch.where(ok[:, None], table, ident)
-            return gather_mix(buf, on(buf.device)["srcs"], table, out=out)
+                for r in _rows(~ok):
+                    out[r].copy_(buf[r])
+            return out
 
-        def mix_buf(buf, *, out=None):
-            c = on(buf.device)
-            table = torch.cat([c["self_w"][:, None], c["weights"]], dim=1)
-            return round_flat(buf, table, out=out)
+        def full_table(c):
+            return torch.cat([c["self_w"][:, None], c["weights"]], dim=1)
 
-        def mix_buf_masked(buf, mask, *, edge_mask=None, out=None):
+        def masked_table(buf, mask, edge_mask):
             sw, ew, ok = masked_tables(on(buf.device), mask, edge_mask)
-            table = torch.cat([sw[:, None], ew], dim=1)
-            return round_flat(buf, table, ok=ok, out=out)
+            return torch.cat([sw[:, None], ew], dim=1), ok
 
-        inner = mix_buf_masked if masked else mix_buf
+        def mix_buf(buf, *, out=None, workspace=None):
+            return round_flat(buf, full_table(on(buf.device)), out=out,
+                              workspace=workspace)
+
+        def mix_buf_masked(buf, mask, *, edge_mask=None, out=None, workspace=None):
+            table, ok = masked_table(buf, mask, edge_mask)
+            return round_flat(buf, table, ok=ok, out=out, workspace=workspace)
+
+        def mix_buf_ef(buf, residual, *, out=None, workspace=None):
+            return round_flat(buf, full_table(on(buf.device)), out=out,
+                              residual=residual, workspace=workspace), residual
+
+        def mix_buf_masked_ef(buf, mask, residual, *, edge_mask=None, out=None,
+                              workspace=None):
+            # masked-out rows (dead slots, multirate skips) keep their
+            # residual: they contributed nothing this round
+            table, ok = masked_table(buf, mask, edge_mask)
+            keep = torch.as_tensor(mask, device=buf.device) > 0
+            return round_flat(buf, table, ok=ok, out=out, residual=residual,
+                              keep=keep, workspace=workspace), residual
+
+        inner = {(False, False): mix_buf, (True, False): mix_buf_masked,
+                 (False, True): mix_buf_ef,
+                 (True, True): mix_buf_masked_ef}[(masked, ef)]
         if flat_io:
             return inner
+
+        if ef:
+            def mix_flat_ef(params, *rest, **kw):
+                spec = FlatSpec.for_tree(params)
+                out, res = inner(spec.ravel(params), *rest, **kw)
+                return spec.unravel(out), res
+            return mix_flat_ef
 
         def mix_flat(params, *rest, **kw):
             spec = FlatSpec.for_tree(params)
@@ -245,11 +331,15 @@ def sync_bytes_per_client(strategy: str, model_bytes: int, num_clients: int,
     ``num_clients`` slots.  fedlay: ``min(2L, K−1) · (K−G)/(K−1) ·
     model_bytes``; ring: ``2·D_K/K · model_bytes`` with ``D_K = ⌈K/G⌉``
     occupied devices; complete: ``(K−G) · model_bytes``; allreduce:
-    ``2·(D_K−1)/D_K · D_K/K · model_bytes``; none: 0.  A wire codec
-    raises (ROADMAP.md Queue 1 item 7)."""
+    ``2·(D_K−1)/D_K · D_K/K · model_bytes``; none: 0.  A wire ``codec``
+    reads ``model_bytes`` as the f32 flat row (``model_bytes / 4``
+    elements) and makes fedlay, ring and complete ship
+    ``codec.wire_bytes`` of it instead; allreduce ignores it."""
     n, G = num_clients, clients_per_device
     check_group_size(n, G)
-    resolve_wire(codec, None)
+    codec = get_codec(codec)
+    if codec is not None and strategy in ("fedlay", "ring", "complete"):
+        model_bytes = codec.wire_bytes(int(round(model_bytes / 4.0)))
     K = n if active_clients is None else int(active_clients)
     if not 1 <= K <= n:
         raise ValueError(f"active_clients {K} out of range for "

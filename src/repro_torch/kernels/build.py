@@ -21,8 +21,13 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: IEEE f32 arithmetic (nvcc's defaults, stated): subnormals kept, true
+#: division and square root.  The wire codec's kernels are held bit-equal
+#: to their reference, so ``--use_fast_math`` is never set.
+IEEE_FLAGS = ("-ftz=false", "-prec-div=true", "-prec-sqrt=true")
 #: Every kernel source of the port, by name (``csrc/<name>.cu``).
-SOURCES = ("flash_decode", "gather_mix")
+SOURCES = ("flash_decode", "gather_mix", "mix_accumulate", "quantize_block",
+           "dequantize_block", "gather_mix_int8")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -47,7 +52,7 @@ def library_path(name: str) -> Path:
 
 
 def _command(name: str, out: Path, verbose: bool) -> list:
-    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+    cmd = [nvcc_path(), *ARCH_FLAGS, *IEEE_FLAGS, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-o", str(out), str(CSRC / f"{name}.cu")]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]

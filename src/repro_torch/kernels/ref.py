@@ -2,9 +2,11 @@
 and what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
 Counterpart of ``repro/kernels/ref.py``.  The oracles of the ported
-kernels (``flash_decode``, ``gather_mix``) are here, with
-:func:`round_matrix`, which ``gather_mix`` runs outside its kernel; the
-others arrive with the kernels that need them (ROADMAP.md, Queue 2).
+kernels (``flash_decode``, ``gather_mix``, ``mix_accumulate`` and the
+wire codec's ``quantize_block``, ``dequantize_block`` and
+``gather_mix_int8``) are here, with :func:`round_matrix`, which the two
+gathers run outside their kernels, and :func:`padded_width`; the others
+arrive with the kernels that need them (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -83,3 +85,75 @@ def gather_mix_ref(buf: torch.Tensor, srcs, weights: torch.Tensor) -> torch.Tens
     gathered = buf.float()[idx]                                 # (C, K1, N)
     acc = (gathered * weights.float()[..., None]).sum(dim=1)
     return acc.to(buf.dtype)
+
+
+def mix_accumulate_ref(acc, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """acc (B, N) or None, x (B, N), w (B,) → ``acc + w·x`` in acc's dtype
+    (``w·x`` in x's dtype when acc is None), f32 math.
+
+    The reference's ``acc + x·w`` reaches the TPU kernel and XLA on the
+    CPU as one fused multiply-add, rounded once; here it is computed in
+    float64 (the product of two f32 values is exact there) and rounded
+    to f32 once, which is the fused result except where the float64 sum
+    lands exactly between two f32 values (then one f32 spacing off).
+    The init form is one f32 multiply, as in the reference."""
+    wf = w.to(device=x.device, dtype=torch.float32)[:, None]
+    if acc is None:
+        return (x.float() * wf).to(x.dtype)
+    return (acc.double() + x.double() * wf.double()).float().to(acc.dtype)
+
+
+def padded_width(n: int, block: int) -> int:
+    """The wire width of an ``n``-column buffer, ``ceil(n / block)·block``
+    (``repro/kernels/wire_codec.py:padded_width``)."""
+    if block < 1:
+        raise ValueError("block must be >= 1")
+    return -(-n // block) * block
+
+
+def quantize_block_ref(x: torch.Tensor, block: int = 128, levels: int = 127,
+                       with_residual: bool = False):
+    """Encode x (B, N) float → ``(q, scales[, residual])`` under the block
+    layout of ``repro/kernels/wire_codec.py:31-41``: q (B, NB·block) int8
+    in [-levels, levels], scales (B, NB) bf16 (the stored scale
+    s = bf16(max|block| / levels)), and the residual x − q·s_used (B, N)
+    f32, where s_used is s, or 1 where s is 0.  The tail block is padded
+    with zeros; both divisions are true IEEE ones and the rounding half
+    to even, as ``jnp.round``'s."""
+    if levels < 1:
+        raise ValueError("levels must be >= 1")
+    B, N = x.shape
+    Np = padded_width(N, block)
+    xp = torch.zeros((B, Np), dtype=torch.float32, device=x.device)
+    xp[:, :N] = x
+    xv = xp.view(B, Np // block, block)
+    amax = xv.abs().amax(dim=2)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not always the IEEE quotient
+    s = (amax / torch.full_like(amax, levels)).to(torch.bfloat16)
+    s_used = s.float()
+    s_used = torch.where(s_used > 0, s_used, torch.ones_like(s_used))[..., None]
+    qf = torch.clamp(torch.round(xv / s_used), -levels, levels)
+    q = qf.to(torch.int8).view(B, Np)
+    if not with_residual:
+        return q, s
+    return q, s, (xv - qf * s_used).view(B, Np)[:, :N].contiguous()
+
+
+def dequantize_block_ref(q: torch.Tensor, scales: torch.Tensor,
+                         block: int = 128) -> torch.Tensor:
+    """Decode ``(q, scales)`` → (B, NB·block) f32: ``q·s`` per block."""
+    B, Nq = q.shape
+    if Nq % block or tuple(scales.shape) != (B, Nq // block):
+        raise ValueError(f"q {tuple(q.shape)} / scales {tuple(scales.shape)} do "
+                         f"not agree with block {block}")
+    deq = q.float().view(B, Nq // block, block) * scales.float()[..., None]
+    return deq.view(B, Nq)
+
+
+def gather_mix_int8_ref(q: torch.Tensor, scales: torch.Tensor, srcs,
+                        weights: torch.Tensor, block: int = 128) -> torch.Tensor:
+    """The round over an int8-block encoded (C, N) population: the decoded
+    rows (:func:`dequantize_block_ref`) mixed by :func:`gather_mix_ref`,
+    (C, NB·block) f32."""
+    return gather_mix_ref(dequantize_block_ref(q, scales, block), srcs, weights)

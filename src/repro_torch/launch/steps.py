@@ -12,7 +12,8 @@ The step works in place on the parameter tree it is given: in the slot
 runtime's resident-flat mode those are views into the (capacity, N)
 population buffer, so a client is neither copied into a module nor back.
 Each client's gradients (one row of parameters' worth, leaf by leaf) are
-the only allocation of its size.
+the only allocation of its size, and are freed before the next client's
+pass begins.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ def dfl_local_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:
                                               o_row, p_row)
                 apply_updates_(p_row, updates)
             losses.append(loss.detach())
+            del grads, updates          # not held through the next client's pass
         device = tree_flatten(params)[0][0].device
         mean = (torch.stack(losses).mean() if losses
                 else torch.zeros((), device=device))

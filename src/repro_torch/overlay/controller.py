@@ -79,12 +79,13 @@ class MixerCache:
 
 
 def _global_mixer_factory(strategy: str = "fedlay", masked: bool = False,
-                          fuse: Optional[str] = None, flat_io: bool = False):
+                          fuse: Optional[str] = None, codec=None,
+                          flat_io: bool = False):
     from ..dist.sync import global_mixer
 
     def build(sched: PermuteSchedule) -> Callable:
         return global_mixer(strategy, sched, masked=masked, fuse=fuse,
-                            flat_io=flat_io)
+                            codec=codec, flat_io=flat_io)
     return build
 
 
@@ -131,8 +132,11 @@ class OverlayController:
     mode (``"flat"``: the flat-buffer ``gather_mix`` round) and keys the
     cache beside the schedule.  ``flat_io`` builds mixers that consume
     and produce the raveled (capacity, N) buffer directly (resident flat
-    parameters; fedlay/ring with ``fuse="flat"`` only).  A wire
-    ``codec`` raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 7).
+    parameters; fedlay/ring with ``fuse="flat"`` only).  A wire ``codec``
+    (a name or a :class:`repro_torch.wire.codec.WireCodec`) compresses the
+    round, implies ``fuse="flat"`` and keys the cache too; with an
+    error-feedback codec the mixers also take and return the residual
+    (:func:`repro_torch.dist.sync.global_mixer`).
     """
 
     def __init__(self, sim: SimulatorProtocol, *,
@@ -159,7 +163,7 @@ class OverlayController:
         if mixer_factory is None:
             mixer_factory = _global_mixer_factory(
                 strategy, masked=capacity is not None, fuse=self.fuse,
-                flat_io=self.flat_io)
+                codec=self.codec, flat_io=self.flat_io)
         self.cache = MixerCache(mixer_factory)
         self.rebuilds = 0
         self.swaps = 0

@@ -28,10 +28,19 @@ tree of views into it; the mixer writes the round into the second
 buffer and the two swap roles every round.  The reference's other mode,
 a resident parameter tree, waits for the slice whose path needs it.
 
+A controller with a wire codec compresses each round
+(:mod:`repro_torch.wire.codec`).  The loop then also holds the codec's
+wire buffers (its ``workspace``), allocated once, and for an
+error-feedback codec the (capacity, N) f32 residual, allocated once and
+updated in place: joiner and leaver rows are zeroed as a plan lands
+(:func:`repro_torch.runtime.slots.plan_reset_slots`), masked-out rows
+keep theirs.  The round forms ``buf + residual`` in the mixer's output
+buffer, which is free until the round writes it.
+
 Checkpointing (``save`` / ``restore``) waits for ROADMAP.md Queue 1
-item 5, and wire codecs for item 7.  A simulator that offers
-``data_faults()`` (the reference's chaos engine, Queue 1 item 6) turns
-on degraded rounds through the mixer's ``edge_mask``.
+item 5.  A simulator that offers ``data_faults()`` (the reference's
+chaos engine, Queue 1 item 6) turns on degraded rounds through the
+mixer's ``edge_mask``.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ from ..obs.rounds import get_round_ledger, round_ledger
 from ..overlay.controller import OverlayController
 from ..overlay.events import ChurnTrace
 from ..overlay.runtime import joiner_donors
-from .slots import RemapPlan
+from .slots import RemapPlan, plan_reset_slots
 
 #: Simulated seconds of NDMP time one training round advances.
 ROUND_TIME = 1.0
@@ -150,6 +159,12 @@ class SlotTrainLoop:
         self.params = torch.zeros((C, self._spec.size),
                                   dtype=self._spec.dtype, device=dev)
         self._spare = torch.empty_like(self.params)
+        self.codec = controller.codec
+        self.ef = self.codec is not None and self.codec.error_feedback
+        self.residual = (torch.zeros((C, self._spec.size), dtype=torch.float32,
+                                     device=dev) if self.ef else None)
+        self.workspace = (self.codec.workspace(C, self._spec.size, dev)
+                          if self.codec is not None else None)
         self.opt_state = _stacked(optimizer.init(first), C)
         for slot, node in live:
             self._write_row(slot, first if slot == live[0][0]
@@ -172,7 +187,9 @@ class SlotTrainLoop:
         """Membership change as in-place row writes: joiners get a donor
         copy (Fig. 18 catch-up from the highest-confidence surviving
         neighbor) or a fresh init when every neighbor is itself a joiner,
-        and a fresh optimizer row; leavers' rows just go dead."""
+        and a fresh optimizer row; leavers' rows just go dead.  The
+        error-feedback residual rows of joiner and leaver slots are
+        zeroed."""
         ctl = self.controller
         joiners = tuple(u for u, _ in plan.joiners)
         survivors = tuple(u for u, _ in plan.survivors)
@@ -187,6 +204,9 @@ class SlotTrainLoop:
             for d, s in zip(tree_flatten(self.opt_state)[0], tree_flatten(
                     self.optimizer.init(self.client_params(node)))[0]):
                 d[slot].copy_(s)
+        if self.ef:
+            for slot in plan_reset_slots(plan):
+                self.residual[slot].zero_()
         return joiners, tuple(u for u, _ in plan.leavers)
 
     # ---- per-round masks and batches -------------------------------------
@@ -230,23 +250,31 @@ class SlotTrainLoop:
     def _record_round(self, ledger, step: int, report, participating: int,
                       loss: float, joined, left, degraded_edges: int) -> None:
         """One :class:`repro_torch.obs.rounds.RoundRecord`: the closed-form
-        wire bytes for this round's participation and the control-plane
-        latencies (repair = the schedule rebuild churn forced, commit =
-        the staged-swap flip)."""
+        wire bytes for this round's participation (the codec's wire
+        image) beside the payload bytes (the uncompressed row, as the
+        reference's ledger has it), and the control-plane latencies
+        (repair = the schedule rebuild churn forced, commit = the
+        staged-swap flip)."""
         from ..dist.sync import sync_bytes_per_client
         ctl = self.controller
         key = (ctl.strategy, ctl.schedule.num_spaces,
                max(int(participating), 1))
-        wire = self._bytes_cache.get(key)
-        if wire is None:
-            wire = self._bytes_cache[key] = sync_bytes_per_client(
-                ctl.strategy, 4 * self._spec.size, self.capacity,
-                num_spaces=key[1], active_clients=key[2])
+        cached = self._bytes_cache.get(key)
+        if cached is None:
+            kwargs = dict(num_spaces=key[1], active_clients=key[2])
+            row_bytes = 4 * self._spec.size
+            wire = sync_bytes_per_client(ctl.strategy, row_bytes, self.capacity,
+                                         codec=ctl.codec, **kwargs)
+            payload = (sync_bytes_per_client(ctl.strategy, row_bytes,
+                                             self.capacity, **kwargs)
+                       if ctl.codec is not None else wire)
+            cached = self._bytes_cache[key] = (wire, payload)
+        wire, payload = cached
         ledger.record(
             round=step, time=report.time, loop="slot",
             num_alive=len(report.alive), participating=int(participating),
             loss=loss, wire_bytes_per_client=wire,
-            payload_bytes_per_client=wire,
+            payload_bytes_per_client=payload,
             swapped=report.swapped, rebuilt=report.rebuilt,
             cache_hit=report.cache_hit, joined=joined, left=left,
             repair_ms=report.rebuild_ms, commit_ms=ctl.last_commit_ms,
@@ -284,7 +312,13 @@ class SlotTrainLoop:
         # the hot-swap seam: the controller's mask-aware mixer; slow or
         # dead slots pass through untouched
         mkw = {} if em is None else {"edge_mask": em}
-        mixed = ctl.mixer(self.params, mix_mask, out=self._spare, **mkw)
+        if self.codec is not None:
+            mkw["workspace"] = self.workspace
+        if self.ef:
+            mixed, _ = ctl.mixer(self.params, mix_mask, self.residual,
+                                 out=self._spare, **mkw)
+        else:
+            mixed = ctl.mixer(self.params, mix_mask, out=self._spare, **mkw)
         self.params, self._spare = mixed, self.params
         part = int(mix_mask.sum())
         loss = float(metrics["loss"])

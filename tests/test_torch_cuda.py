@@ -1,6 +1,8 @@
-"""The port on the card: the CUDA ``flash_decode`` and ``gather_mix``
-kernels against their plain PyTorch versions, and the serving and slot
-training loops on the card against the same on the CPU.  Every test here needs an NVIDIA GPU and skips without one;
+"""The port on the card: the CUDA ``flash_decode``, ``gather_mix``,
+``mix_accumulate``, ``quantize_block``, ``dequantize_block`` and
+``gather_mix_int8`` kernels against their plain PyTorch versions, and
+the serving and slot training loops (codec-free and under the block
+codecs) on the card against the same on the CPU.  Every test here needs an NVIDIA GPU and skips without one;
 the file imports neither JAX nor the reference package, so it also runs
 where only PyTorch is installed:
 
@@ -264,3 +266,177 @@ def test_slot_loop_card_matches_cpu(cuda):
     assert a_cpu == a_gpu == [5, 4, 5, 5, 5]
     assert (n_cpu, n_gpu) == (0, 5)
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# mix_accumulate and the wire codec's kernels
+# --------------------------------------------------------------------------
+
+def _bits(t):
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _wire_rows(gen, B, N, levels, block):
+    """Rows of mixed magnitude; row 0 starts with an all-zero block, a
+    block of exact .5 ties and a block with a subnormal scale."""
+    x = _rand(gen, B, N) * torch.logspace(-3, 1, B, device=gen.device)[:, None]
+    if N >= 3 * block:
+        k = torch.arange(block, device=gen.device, dtype=torch.float32)
+        tie = (k % 7) * 0.5 + 0.25
+        tie[0] = levels / 2
+        x[0, :block] = 0.0
+        x[0, block:2 * block] = tie * torch.where(k % 2 == 1, -1.0, 1.0)
+        x[0, 2 * block:3 * block] = 1e-37 * torch.linspace(-1, 1, block,
+                                                            device=gen.device)
+    return x
+
+
+@pytest.mark.parametrize("levels", [127, 7])
+@pytest.mark.parametrize("block", [128, 64, 32])
+@pytest.mark.parametrize("N", [1, 1000, 4133, 3 * 128 * 64])
+def test_quantize_and_dequantize_match_plain_bit_for_bit(cuda, levels, block, N):
+    """IEEE arithmetic on both sides, subnormals kept: q, the scales, the
+    residual (also written over the input) and the decode bit for bit."""
+    from repro_torch.kernels.ref import dequantize_block_ref, quantize_block_ref
+    from repro_torch.kernels.wire_codec import dequantize_block, quantize_block
+    gen = torch.Generator(device=cuda).manual_seed(N + block + levels)
+    x = _wire_rows(gen, 4, N, levels, block)
+    qr, sr, rr = quantize_block_ref(x, block, levels, True)
+    before = quantize_block.launches
+    q, s, r = quantize_block(x, block=block, levels=levels, with_residual=True)
+    xi = x.clone()
+    quantize_block(xi, block=block, levels=levels, with_residual=True, residual_out=xi)
+    d = dequantize_block(q, s, block=block)
+    torch.cuda.synchronize()
+    assert quantize_block.launches == before + 2
+    assert torch.equal(q, qr) and torch.equal(_bits(s), _bits(sr))
+    assert torch.equal(_bits(r), _bits(rr)) and torch.equal(_bits(xi), _bits(rr))
+    assert torch.equal(_bits(d), _bits(dequantize_block_ref(q, s, block)))
+
+
+@pytest.mark.parametrize("block", [128, 32])
+@pytest.mark.parametrize("C,N", MIX_SHAPES)
+def test_gather_mix_int8_matches_plain(cuda, C, N, block):
+    """Within 1e-6 x max|dequant| (f32 sums in another order); numpy and
+    tensor sources; an N-wide out gets the first N columns."""
+    from repro_torch.kernels.ref import dequantize_block_ref, gather_mix_int8_ref
+    from repro_torch.kernels.wire_codec import gather_mix_int8, quantize_block
+    gen = torch.Generator(device=cuda).manual_seed(C * 31 + N)
+    q, s = quantize_block(_rand(gen, C, N), block=block)
+    srcs, w = _mix_table(gen, C)
+    ref = gather_mix_int8_ref(q, s, srcs, w, block)
+    tol = 1e-6 * dequantize_block_ref(q, s, block).abs().max().item()
+    for src in (srcs, srcs.cpu().numpy()):
+        out = gather_mix_int8(q, s, src, w, block=block)
+        torch.testing.assert_close(out, ref, rtol=0.0, atol=tol)
+    narrow = torch.empty((C, N), device=cuda)
+    assert gather_mix_int8(q, s, srcs, w, block=block, out=narrow) is narrow
+    torch.cuda.synchronize()
+    assert torch.equal(narrow, out[:, :N])
+
+
+@pytest.mark.parametrize("acc_dtype,x_dtype", [(torch.float32, torch.float32),
+                                               (torch.bfloat16, torch.bfloat16),
+                                               (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("N", [1, 1001, 4096, 3 * 2 ** 16 + 5])
+def test_mix_accumulate_matches_plain(cuda, acc_dtype, x_dtype, N):
+    """The init form bit for bit; the accumulate form within one spacing
+    of its dtype (one fused multiply-add against a float64 sum rounded
+    once); in place into acc and into x with the same bits."""
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.ref import mix_accumulate_ref
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    acc, x = _rand(gen, 6, N, dtype=acc_dtype), _rand(gen, 6, N, dtype=x_dtype)
+    w = torch.rand((6,), generator=gen, device=cuda)
+    out, ref = mix_accumulate(acc, x, w), mix_accumulate_ref(acc, x, w)
+    step = torch.ldexp(torch.full_like(ref.float(), torch.finfo(acc_dtype).eps),
+                       torch.frexp(ref.float()).exponent - 1)
+    assert bool(((out.float() - ref.float()).abs() <= step).all())
+    a = acc.clone()
+    assert torch.equal(_bits(mix_accumulate(a, x, w, out=a)), _bits(out))
+    if acc_dtype == x_dtype:
+        xi = x.clone()
+        assert torch.equal(_bits(mix_accumulate(acc, xi, w, out=xi)), _bits(out))
+    init = mix_accumulate(None, x, w)
+    assert init.dtype == x_dtype
+    assert torch.equal(_bits(init), _bits(mix_accumulate_ref(None, x, w)))
+
+
+def test_wire_kernels_reject_bad_layouts(cuda):
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.wire_codec import (dequantize_block, gather_mix_int8,
+                                                quantize_block)
+    x = torch.zeros((4, 256), device=cuda)
+    with pytest.raises(ValueError, match="block"):
+        quantize_block(x, block=96)
+    with pytest.raises(ValueError, match="float32"):
+        quantize_block(x.bfloat16())
+    with pytest.raises(ValueError, match="levels up to 127"):
+        quantize_block(x, levels=200)
+    q, s = quantize_block(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        dequantize_block(torch.zeros((256, 4), dtype=torch.int8, device=cuda).t(), s)
+    with pytest.raises(ValueError, match="C <= 224"):
+        gather_mix_int8(torch.zeros((225, 128), dtype=torch.int8, device=cuda),
+                        torch.zeros((225, 1), dtype=torch.bfloat16, device=cuda),
+                        np.zeros((225, 1), np.int64), torch.ones((225, 1), device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mix_accumulate(None, x.half(), torch.ones(4, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        mix_accumulate(None, torch.zeros((256, 4), device=cuda).t(),
+                       torch.ones(4, device=cuda))
+
+
+@pytest.mark.parametrize("codec", ["int8-block", "int4-block"])
+def test_codec_slot_loop_card_matches_cpu(cuda, codec):
+    """tiny_lm under SlotTrainLoop with a block codec, a fail and a join:
+    the same alive sequence, losses within 1e-4 relative, the kernels
+    launched once a round (int8-block: quantize_block, gather_mix_int8,
+    mix_accumulate; int4-block: quantize_block, dequantize_block,
+    gather_mix, mix_accumulate), and the card's residual within the
+    codec's tolerance of the CPU's."""
+    from repro_torch.core.ndmp import Simulator
+    from repro_torch.dist.flat import tree_map
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.wire_codec import (dequantize_block, gather_mix_int8,
+                                                quantize_block)
+    from repro_torch.launch.steps import dfl_local_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.overlay.controller import OverlayController
+    from repro_torch.overlay.events import ChurnTrace
+    from repro_torch.runtime.loop import SlotTrainLoop
+    cfg = tiny_lm(layers=2)
+    kernels = (quantize_block, gather_mix_int8, dequantize_block, gather_mix,
+               mix_accumulate)
+    runs = []
+    for device in ("cpu", cuda):
+        sim = Simulator(num_spaces=2, latency=0.05, heartbeat_period=0.5,
+                        probe_period=1.0, seed=0)
+        sim.seed_network(list(range(5)))
+
+        def make_batch(ids, step, device=device):
+            t = torch.from_numpy(np.stack([np.random.default_rng([u, step]).integers(
+                0, cfg.vocab_size, (1, 33)) for u in ids])).to(device)
+            return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+        loop = SlotTrainLoop(
+            OverlayController(sim, capacity=6, fuse="flat", flat_io=True, codec=codec),
+            local_step=dfl_local_step(cfg, sgd(0.05)), optimizer=sgd(0.05),
+            make_params=lambda u, device=device: tree_map(
+                lambda l: l.to(device),
+                init_params(cfg, torch.Generator().manual_seed(u))),
+            make_batch=make_batch)
+        before = [k.launches for k in kernels]
+        recs = loop.run(5, trace=ChurnTrace.scripted([(1.5, "fail", 2),
+                                                      (2.5, "join", 9, 0)]))
+        runs.append(([r.num_alive for r in recs], [r.loss for r in recs],
+                     [k.launches - b for k, b in zip(kernels, before)],
+                     loop.residual.cpu(), loop.params.cpu()))
+    (a_cpu, l_cpu, n_cpu, r_cpu, p_cpu), (a_gpu, l_gpu, n_gpu, r_gpu, _) = runs
+    assert a_cpu == a_gpu == [5, 4, 5, 5, 5]
+    assert n_cpu == [0] * 5
+    assert n_gpu == ([5, 5, 0, 0, 5] if codec == "int8-block" else [5, 0, 5, 5, 5])
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    from repro_torch.wire.codec import get_codec
+    tol = get_codec(codec).tolerance(p_cpu)
+    assert bool(((r_gpu - r_cpu).abs() <= tol + 1e-7).all())

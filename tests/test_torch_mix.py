@@ -215,13 +215,23 @@ def test_unmasked_mixers_match_jax_and_the_schedule_matrix():
 
 @pytest.mark.parametrize("strategy", ["allreduce", "none"])
 def test_flat_io_needs_fedlay_or_ring_and_codecs_wait(strategy):
+    """flat_io needs fedlay or ring.  The codecs no longer wait: any codec
+    implies the flat fuse mode, and allreduce and none ignore it (no
+    per-neighbour wire), as the reference's do."""
+    from repro.dist.sync import resolve_wire as j_resolve_wire
     with pytest.raises(ValueError, match="flat_io"):
         global_mixer(strategy, None, masked=True, fuse="flat", flat_io=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        global_mixer(strategy, None, codec="int8-block")
+    X = np.random.default_rng(1).normal(size=(4, 6)).astype(np.float32)
+    got = global_mixer(strategy, None, codec="int8-block")({"m": torch.from_numpy(X)})
+    want = j_global_mixer(strategy, None, codec="int8-block")({"m": jnp.asarray(X)})
+    np.testing.assert_allclose(got["m"].numpy(), np.asarray(want["m"]), rtol=0,
+                               atol=F32_TOL)
     with pytest.raises(ValueError, match="fuse"):
         check_fuse("fused")
     assert resolve_wire(None, "tree") == (None, None)
+    codec, fuse = resolve_wire("int8-block", None)
+    j_codec, j_fuse = j_resolve_wire("int8-block", None)
+    assert (codec.name, codec.block, fuse) == (j_codec.name, j_codec.block, j_fuse)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 8])

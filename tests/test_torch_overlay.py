@@ -137,7 +137,13 @@ def test_joiner_donors_and_edge_mask_match():
 
 
 def test_controller_rejects_codecs_and_flat_io_without_flat():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        OverlayController(_sim(Simulator, n=3), codec="bf16")
+    """A codec is taken now: it implies the flat fuse mode and keys the
+    mixer cache beside the schedule, as the reference's controller does.
+    flat_io without the flat mode is still refused."""
+    ctl = OverlayController(_sim(Simulator, n=3), codec="bf16")
+    jctl = JController(_sim(JSimulator, n=3), codec="bf16")
+    assert (ctl.codec.name, ctl.fuse) == (jctl.codec.name, jctl.fuse) == ("bf16", "flat")
+    assert ctl.cache.get(ctl.schedule, ctl.fuse, ctl.codec)[1]
+    assert not ctl.cache.get(ctl.schedule, ctl.fuse, None)[1]
     with pytest.raises(ValueError, match="flat_io"):
         OverlayController(_sim(Simulator, n=3), capacity=4, flat_io=True)

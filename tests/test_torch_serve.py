@@ -214,12 +214,14 @@ def _imported_roots(path):
 
 def test_no_file_of_the_port_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
     names = {str(p.relative_to(ROOT)) for p in files}
     for module in ("core/ndmp.py", "core/mixing.py", "overlay/controller.py",
                    "overlay/events.py", "faults/plan.py", "dist/flat.py",
                    "dist/sync.py", "kernels/gather_mix.py", "optim/optimizers.py",
-                   "runtime/loop.py", "runtime/masked.py", "launch/steps.py"):
+                   "runtime/loop.py", "runtime/masked.py", "launch/steps.py",
+                   "wire/__init__.py", "wire/codec.py", "kernels/mix_accumulate.py",
+                   "kernels/wire_codec.py"):
         assert f"src/repro_torch/{module}" in names, module
     for path in files:
         roots = set(_imported_roots(path))
