@@ -1207,7 +1207,7 @@ def phase_wire(torch, card, name):
           + "; ".join(f"{k[:40]} {ms:.3f}" for k, ms in top) + f" ({card})")
 
     # each new kernel at the round's own shape (the loop's buffers are
-    # scratch from here on)
+    # free for reuse from here on)
     entries = {}
     NB = ws["scales"].shape[1]
     Nq = NB * block
