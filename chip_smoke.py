@@ -542,6 +542,10 @@ def check_wire_kernels(torch):
                 d = dequantize_block(q, s, block=block)
                 check(torch.equal(bits(d), bits(dequantize_block_ref(q, s, block))),
                       f"dequantize_block differs at block {block}")
+                narrow = torch.empty((B, N), device="cuda")
+                check(dequantize_block(q, s, block=block, out=narrow) is narrow
+                      and torch.equal(bits(narrow), bits(d[:, :N])),
+                      "dequantize_block into an N-wide out differs")
                 cases += 1
     # a row-strided view: the residual written over rows of a wider buffer
     wide = torch.randn((4, 5000), generator=gen, device="cuda")
@@ -603,9 +607,9 @@ def check_wire_kernels(torch):
     print(f"kernels: quantize_block and dequantize_block on {cases} cases (levels "
           f"127 and 7, blocks 128, 64, 32, ragged N, all-zero, tie and "
           f"subnormal-scale blocks: {subnormal} subnormal scales) and a "
-          f"row-strided view: q, scales, residual (in place too) and decode bit for "
-          f"bit; gather_mix_int8 on C in 2..200, blocks 128, 64, 32, ragged N, numpy "
-          f"and tensor sources: max abs err {worst_g:.3e} (tol 1e-6 x max|dequant|); "
+          f"row-strided view: q, scales, residual (in place too) and decode (into "
+          f"an N-wide out too) bit for bit; gather_mix_int8 on C in 2..200, blocks "
+          f"128, 64, 32, ragged N, numpy and tensor sources: max abs err {worst_g:.3e} (tol 1e-6 x max|dequant|); "
           f"mix_accumulate f32, bf16 and bf16 x into f32, in place into acc and x: "
           f"init form bit for bit, accumulate form within one spacing "
           f"({flips} elements one spacing off)")
@@ -1150,20 +1154,25 @@ def phase_wire(torch, card, name):
     res_in, mask = last["res_in"], last["mask"]
     srcs, weights, self_w = last["srcs"], last["weights"], last["self_w"]
     live = torch.as_tensor(mask > 0, device="cuda")
-    err = scale = err_g = err_a = 0.0
+    err = scale = err_q = err_g = err_a = 0.0
     for a in range(0, N, CHUNK):
         b = min(a + CHUNK, N)
         x = inp[:, a:b]
         rin = res_in[:, a:b].to("cuda")
         qr, sr, rr = quantize_block_ref(x + rin, block, levels, True)
-        q_bad = int((ws["q"][:, a:b] != qr).sum())
-        s_bad = int((bits(ws["scales"][:, a // block:b // block]) != bits(sr)).sum())
+        qk = ws["q"][:, a:a + qr.shape[1]]
+        sk = ws["scales"][:, a // block:a // block + sr.shape[1]]
+        q_bad = int((qk != qr).sum())
+        s_bad = int((bits(sk) != bits(sr)).sum())
         check(q_bad == 0 and s_bad == 0,
               f"{q_bad} q and {s_bad} scales differ from the plain version in "
               f"columns {a}..{b}")
-        check(torch.equal(bits(res_out[:, a:b]),
-                          bits(torch.where(live[:, None], rr, rin))),
+        want_res = torch.where(live[:, None], rr, rin)
+        check(torch.equal(bits(res_out[:, a:b]), bits(want_res)),
               f"the residual differs from the plain version in columns {a}..{b}")
+        err_q = max(err_q, (res_out[:, a:b] - want_res).abs().max().item(),
+                    (dequantize_block_ref(qk, sk, block)
+                     - dequantize_block_ref(qr, sr, block)).abs().max().item())
         g = gather_mix_int8_ref(qr, sr, srcs, weights, block)
         ref = torch.where(live[:, None], mix_accumulate_ref(g, x, self_w), x)
         err = max(err, (out[:, a:b] - ref).abs().max().item())
@@ -1176,7 +1185,7 @@ def phase_wire(torch, card, name):
         else:
             err_g = max(err_g, (dequantize_block(qr, sr, block=block)
                                 - dequantize_block_ref(qr, sr, block)).abs().max().item())
-        del rin, qr, sr, rr, g, ref
+        del rin, qr, sr, rr, want_res, g, ref
     del res_in
     check(err <= 1e-6 * scale, f"the {name} round differs from the plain path by {err}")
     print(f"wire: {name} round {TRAIN_ROUNDS - 1} against the plain path over column "
@@ -1243,7 +1252,7 @@ def phase_wire(torch, card, name):
             scales_out=s, residual_out=residual)], 5)
         plain = device_ms(torch, [chunked(lambda a, b: quantize_block_ref(
             inp[:, a:b], block, levels, True))], 1)
-        entry("quantize_block", 0.0, ms, plain, None, (4 + 4) * C * N + C * Nq + 2 * C * NB,
+        entry("quantize_block", err_q, ms, plain, None, (4 + 4) * C * N + C * Nq + 2 * C * NB,
               0, "src/repro/kernels/wire_codec.py:95", None)
         W = round_matrix(C, srcs, weights)
         ms = device_ms(torch, [lambda: gather_mix_int8(q, s, srcs, weights, block=block,

@@ -98,6 +98,13 @@ def _rows(flags: torch.Tensor):
     return torch.nonzero(flags.cpu()).flatten().tolist()
 
 
+def _kept_rows(mask, C: int):
+    """The rows of a (C,) 0/1 host mask that are set, or None when every
+    row is."""
+    kept = np.flatnonzero(np.asarray(mask) > 0)
+    return None if len(kept) == C else kept.tolist()
+
+
 def _row_shape(leaf: torch.Tensor):
     return (leaf.shape[0],) + (1,) * (leaf.dim() - 1)
 
@@ -130,7 +137,8 @@ def global_mixer(strategy: str,
     docstring); allreduce and none ignore it.  For an error-feedback
     codec the signature grows a trailing (C, N) f32 ``residual`` and the
     mixer returns ``(params, residual)``: the residual is updated in
-    place, and masked-out rows keep theirs.  A codec's flat_io mixer also
+    place, and masked-out rows keep theirs (``mask`` is then read on the
+    host: a numpy array or a CPU tensor).  A codec's flat_io mixer also
     takes a keyword-only ``workspace``, the codec's
     :meth:`~repro_torch.wire.codec.WireCodec.workspace` for the round's
     wire.  With an error-feedback codec ``out`` holds ``buf + residual``
@@ -216,8 +224,8 @@ def global_mixer(strategy: str,
             codec's gather into ``out``, the self column adds the true
             rows with mix_accumulate, and rows where ~ok are copied from
             ``buf``.  EF encodes ``buf + residual`` (formed in ``out``)
-            and writes the fresh residual into ``residual``'s rows,
-            except those where ``keep`` is False."""
+            and writes the fresh residual into ``residual`` (straight,
+            when ``keep`` is None) or into its rows listed in ``keep``."""
             srcs = on(buf.device)["srcs"]
             if codec is None or codec.exact:
                 if ok is not None:
@@ -235,10 +243,13 @@ def global_mixer(strategy: str,
                                  "writes out: out must not be buf")
             if ef:
                 operand = torch.add(buf, residual, out=out)
-                wire, fresh = codec.encode_ef(operand, workspace, residual_out=operand)
-                rows = range(C) if keep is None else _rows(keep)
-                for r in rows:
-                    residual[r].copy_(fresh[r])
+                if keep is None:
+                    wire, _ = codec.encode_ef(operand, workspace, residual_out=residual)
+                else:
+                    wire, fresh = codec.encode_ef(operand, workspace,
+                                                  residual_out=operand)
+                    for r in keep:
+                        residual[r].copy_(fresh[r])
             else:
                 wire = codec.encode(buf, workspace)
             out = codec.gather(wire, srcs[:, 1:], table[:, 1:], buf.shape[1],
@@ -273,9 +284,8 @@ def global_mixer(strategy: str,
             # masked-out rows (dead slots, multirate skips) keep their
             # residual: they contributed nothing this round
             table, ok = masked_table(buf, mask, edge_mask)
-            keep = torch.as_tensor(mask, device=buf.device) > 0
             return round_flat(buf, table, ok=ok, out=out, residual=residual,
-                              keep=keep, workspace=workspace), residual
+                              keep=_kept_rows(mask, C), workspace=workspace), residual
 
         inner = {(False, False): mix_buf, (True, False): mix_buf_masked,
                  (False, True): mix_buf_ef,

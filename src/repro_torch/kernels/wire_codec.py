@@ -44,7 +44,7 @@ KERNEL_BLOCKS = (32, 64, 128)
 _ptr, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "quantize_block": [_ptr, _ll, _ptr, _ptr, _ptr, _ll, _int, _ll, _int, _int, _int, _ptr],
-    "dequantize_block": [_ptr, _ptr, _ptr, _int, _ll, _int, _int, _ptr],
+    "dequantize_block": [_ptr, _ptr, _ptr, _int, _ll, _int, _ll, _ll, _int, _ptr],
     "gather_mix_int8": [_ptr, _ptr, _ptr, _ptr, _int, _ll, _int, _ll, _ll, _int, _ptr],
 }
 
@@ -148,19 +148,23 @@ def quantize_block(x: torch.Tensor, *, block: int = 128, levels: int = 127,
 
 def dequantize_block(q: torch.Tensor, scales: torch.Tensor, *, block: int = 128,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Decode ``(q, scales)`` → (B, NB·block) f32, ``q·s`` per block, into
-    ``out`` when given.  Raises ``ValueError`` for q and scales that do
-    not agree with ``block`` or an ``out`` of another shape, dtype or
-    device, and, on the card, for a block the kernel does not serve or
-    non-contiguous operands."""
+    """Decode ``(q, scales)`` → (B, NB·block) f32, ``q·s`` per block, as
+    the reference does, or write ``out``, a (B, n) f32 buffer with
+    n ≤ NB·block, with the first n columns (as :func:`gather_mix_int8`
+    does).  Raises ``ValueError`` for q and scales that do not agree with
+    ``block`` or a bad ``out``, and, on the card, for a block the kernel
+    does not serve or non-contiguous operands."""
     B, Nq = q.shape
     if Nq % block or tuple(scales.shape) != (B, Nq // block):
         raise ValueError(f"q {tuple(q.shape)} / scales {tuple(scales.shape)} do "
                          f"not agree with block {block}")
-    _check_out("out", out, (B, Nq), torch.float32, q.device)
+    n = Nq if out is None else out.shape[1]
+    if not 1 <= n <= Nq:
+        raise ValueError(f"out has {n} columns; the wire is {Nq} wide")
+    _check_out("out", out, (B, n), torch.float32, q.device)
     if q.device.type == "cpu":
         res = dequantize_block_ref(q, scales, block)
-        return res if out is None else out.copy_(res)
+        return res if out is None else out.copy_(res[:, :n])
     _check_cuda("dequantize_block", q, block)
     if q.dtype != torch.int8 or scales.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA dequantize_block takes int8 q and bf16 scales, "
@@ -170,7 +174,7 @@ def dequantize_block(q: torch.Tensor, scales: torch.Tensor, *, block: int = 128,
     if not (q.is_contiguous() and scales.is_contiguous() and out.is_contiguous()):
         raise ValueError("dequantize_block needs contiguous q, scales and out")
     _launch("dequantize_block", q.device, q.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), B, Nq // block, block)
+            out.data_ptr(), B, Nq // block, block, n, n)
     dequantize_block.launches += 1
     return out
 

@@ -237,8 +237,9 @@ class Int8BlockCodec(WireCodec):
 
     def decode(self, wire, n, out=None):
         q, s = wire
-        deq = dequantize_block(q, s, block=self.block)[:, :n]
-        return deq if out is None else out.copy_(deq)
+        if out is None:
+            return dequantize_block(q, s, block=self.block)[:, :n]
+        return dequantize_block(q, s, block=self.block, out=out)
 
     def wire_bytes(self, n):
         nb = -(-n // self.block)
@@ -328,12 +329,9 @@ class Int4BlockCodec(WireCodec):
     def decode(self, wire, n, out=None, ws=None):
         packed, s = wire
         q = self._unpack(packed, n, (ws or {}).get("q"))
-        Np = q.shape[1]
-        full = out is not None and out.shape[1] == Np
-        deq = dequantize_block(q, s, block=self.block, out=out if full else None)
-        if full:
-            return deq
-        return deq[:, :n] if out is None else out.copy_(deq[:, :n])
+        if out is None:
+            return dequantize_block(q, s, block=self.block)[:, :n]
+        return dequantize_block(q, s, block=self.block, out=out)
 
     def wire_bytes(self, n):
         nb = -(-n // self.block)
