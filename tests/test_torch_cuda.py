@@ -422,14 +422,13 @@ def test_codec_slot_loop_card_matches_cpu(cuda, codec):
     round left, except the rows its plan reset, which are zero.  Between
     the devices, each round's encoding is the same: the entries whose q
     or block scale differ between the two operands are at most 1 in 10^3
-    of the live entries (on an H100: at most 58 of 2,788,480 in a round
-    under int8-block, none under int4-block).  The operands differ in
-    their last bits (the local steps sum in other orders), which flips a
-    q only for an entry that close to a rounding boundary, and a flip
-    moves the neighbours' next operands in that column by a fraction of a
-    step, so flips spread along their columns over the rounds; a residual
-    that is not carried, or carried in the wrong rows, moves the operand
-    by up to half a step and flips about half the q."""
+    of the live entries.  The operands differ in their last bits (the
+    local steps sum in other orders), which flips a q only for an entry
+    that close to a rounding boundary, and a flip moves the neighbours'
+    next operands in that column by a fraction of a step, so flips spread
+    along their columns over the rounds; a residual that is not carried,
+    or carried in the wrong rows, moves the operand by up to half a step
+    and flips about half the q."""
     from repro_torch.core.ndmp import Simulator
     from repro_torch.dist.flat import tree_map
     from repro_torch.kernels.mix_accumulate import mix_accumulate
