@@ -572,13 +572,12 @@ def test_codec_slot_loop_matches_jax(codec_runs):
     """The same alive sequence and churn, each round's loss within 1e-5
     relative, and each round's encoding the same on both sides: the
     entries whose q or block scale differ between the two loops'
-    operands (buf + residual) are at most 1 in 10^3 of the live entries
-    (none in this run).  The operands differ in their last bits (the
-    local steps sum in other orders), so the residuals are not bit-equal;
-    a last-bit difference flips a q only for an entry that close to a
-    rounding boundary, while a residual that is not carried, or carried
-    in the wrong rows, moves the operand by up to half a step and flips
-    about half the q.  The population within the codec's tolerance of
+    operands (buf + residual) are at most 1 in 10^3 of the live entries.
+    The operands differ in their last bits (the local steps sum in other
+    orders), so the residuals are not bit-equal; a last-bit difference
+    flips a q only for an entry that close to a rounding boundary, while
+    a residual that is not carried, or carried in the wrong rows, moves
+    the operand by up to half a step and flips about half the q.  The population within the codec's tolerance of
     the JAX loop's (a q flip moves a mixed entry by at most a step)."""
     name, jloop, tloop, *_, jcalls, tcalls = codec_runs
     jrec, trec = jloop.records, tloop.records
