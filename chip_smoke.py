@@ -10,8 +10,9 @@ Phases, each printing its lines:
 1. environment: torch and CUDA versions, TF32 settings, the card;
 2. build: every kernel of the port (``flash_decode``, ``gather_mix``,
    ``mix_accumulate``, ``quantize_block``, ``dequantize_block``,
-   ``gather_mix_int8``), one ``nvcc`` per source, all started together,
-   timed;
+   ``dequant_accumulate``, ``gather_mix_int8``), one ``nvcc`` per
+   source, all started together, timed; then the one-rank NCCL client
+   group (``repro_torch.launch.mesh``) on a free localhost port;
 3. kernels: each kernel against its plain PyTorch version on the card:
    ``flash_decode`` at the CPU tests' shapes and at the ``decode_32k``
    width, with times; ``gather_mix`` over f32 and bf16, C from 2 to 200,
@@ -20,13 +21,16 @@ Phases, each printing its lines:
    (levels 127 and 7, blocks 128, 64 and 32, ragged N, all-zero blocks,
    subnormal scales, exact .5 ties, the residual in place too);
    ``gather_mix_int8`` for C from 2 to 200; ``mix_accumulate`` in both
-   forms, f32 and bf16, in place into acc and into x;
+   forms bit for bit, f32 and bf16, in place into acc and into x;
+   ``dequant_accumulate`` bit for bit (f32 and bf16 acc, ragged N, the
+   init form, blocks 128, 64 and 32, B from 1 to 65535, in place);
 4. small: the ``tiny_lm`` ``ServeLoop`` on the card against the same on
    the CPU, token for token; the ``tiny_lm`` ``SlotTrainLoop`` with a
    fail and a join on the card against the same on the CPU (alive
    sequence equal, losses within 1e-4 relative), codec-free, with
    int8-block and with int4-block; one masked round of each of the five
-   codecs, card against CPU;
+   codecs, card against CPU; one per-rank round of each codec at
+   tiny_lm width, card against CPU;
 5. slice: ``run_slots`` serving Llama-3.2-3B at full width and depth
    (random f32 weights from a seeded generator), with the launch counts
    of the kernels, then one ``decode_step`` with the kernel against the
@@ -46,7 +50,17 @@ Phases, each printing its lines:
    round's losses at the same depth beside the codec's, and each new
    kernel at the round's shape against its plain version and a PyTorch
    call;
-8. the ``kernels`` JSON line, the card's name and power limit, and the
+8. mesh: the per-rank mixer on a one-rank NCCL client group holding all
+   8 clients (``OverlayController(mixer_kind="shard_map")``, so every
+   edge is an intra-rank take): a few DFL rounds of ``dfl_local_step``
+   and the per-rank int8-block round with its residual at Llama-3.2-3B
+   width cut to what fits, with its checks (``dequant_accumulate`` 2L
+   times a round, ``quantize_block`` and the self term once, the round
+   against the global int8-block round, the codec-free per-rank round
+   against ``gather_mix``, ``data_ptr``, peak memory), the codec-free
+   per-rank round's losses beside, and ``dequant_accumulate`` at the
+   round's shape against its plain version and two PyTorch calls;
+9. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result
@@ -60,6 +74,7 @@ import copy
 import dataclasses
 import gc
 import json
+import socket
 import subprocess
 import sys
 import time
@@ -272,11 +287,15 @@ def profiled(torch, fn, repeats: int = 3):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / repeats
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a lead-in on the device (about 0.1 s), left out of the sums: late
+        # in a long run the trace dropped the first tens of ms of kernels
+        # of the window (a full-width mixing round lost its first three)
+        torch.cuda._sleep(200_000_000)
         fn()
         torch.cuda.synchronize()
     by_kernel = {}
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.key:
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = ev.self_cuda_time_total
@@ -509,9 +528,9 @@ def check_wire_kernels(torch):
     versions on the card.  quantize_block (q, scales, residual) and
     dequantize_block bit for bit: IEEE arithmetic on both sides, with
     subnormals kept.  gather_mix_int8 within 1e-6 x max|dequant| (f32
-    sums in another order).  mix_accumulate's init form bit for bit; its
-    accumulate form within one spacing of the result's dtype (the kernel
-    rounds one fused multiply-add, the plain version from float64)."""
+    sums in another order).  mix_accumulate in both forms bit for bit
+    (the kernel's fused multiply-add and the plain version's exact sum
+    both round once to f32)."""
     from repro_torch.kernels.mix_accumulate import mix_accumulate
     from repro_torch.kernels.ref import (dequantize_block_ref, gather_mix_int8_ref,
                                          mix_accumulate_ref, quantize_block_ref)
@@ -573,7 +592,6 @@ def check_wire_kernels(torch):
                   and torch.equal(narrow, out[:, :N]),
                   "gather_mix_int8 into an N-wide out differs")
 
-    flips = 0
     for dta, dtx in [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                      (torch.float32, torch.bfloat16)]:
         for B, N in [(1, 1), (3, 1001), (8, 4096), (7, 3 * 2 ** 16 + 5)]:
@@ -582,13 +600,9 @@ def check_wire_kernels(torch):
             w = torch.rand((B,), generator=gen, device="cuda")
             ref = mix_accumulate_ref(acc, x, w)
             out = mix_accumulate(acc, x, w)
-            # one spacing of ref in its dtype: eps x 2^(e - 1) for |ref| = m x 2^e
-            exp = torch.frexp(ref.float()).exponent
-            step = torch.ldexp(torch.full_like(ref.float(), torch.finfo(dta).eps), exp - 1)
-            diff = (out.float() - ref.float()).abs()
-            check(bool((diff <= step).all()),
-                  f"mix_accumulate differs by more than one spacing ({dta}, {dtx})")
-            flips += int((diff > 0).sum())
+            check(torch.equal(bits(out), bits(ref)),
+                  f"mix_accumulate differs from its plain version ({dta}, {dtx}, "
+                  f"({B}, {N}))")
             inplace = acc.clone()
             check(mix_accumulate(inplace, x, w, out=inplace) is inplace
                   and torch.equal(bits(inplace), bits(out)),
@@ -610,9 +624,8 @@ def check_wire_kernels(torch):
           f"row-strided view: q, scales, residual (in place too) and decode (into "
           f"an N-wide out too) bit for bit; gather_mix_int8 on C in 2..200, blocks "
           f"128, 64, 32, ragged N, numpy and tensor sources: max abs err {worst_g:.3e} (tol 1e-6 x max|dequant|); "
-          f"mix_accumulate f32, bf16 and bf16 x into f32, in place into acc and x: "
-          f"init form bit for bit, accumulate form within one spacing "
-          f"({flips} elements one spacing off)")
+          f"mix_accumulate f32, bf16 and bf16 x into f32, in place into acc and x, "
+          f"both forms: bit for bit")
 
 
 def slot_loop(torch, cfg, capacity, live, seq, device, seed, draw_on=None,
@@ -1291,6 +1304,392 @@ def phase_wire(torch, card, name):
     return entries, losses, free_losses
 
 
+def check_dequant_accumulate(torch):
+    """dequant_accumulate against its plain version on the card, bit for
+    bit: f32 and bf16 acc of N <= Nq columns (ragged and whole), blocks
+    128, 64 and 32, in place into acc, an acc off the 16-byte grid, the
+    init form, B from 1 to 65535, and the sum whose float64 rounding lands
+    on an f32 midpoint (the kernel's fmaf and the plain version both
+    round it once)."""
+    from repro_torch.kernels.ref import dequant_accumulate_ref
+    from repro_torch.kernels.wire_codec import dequant_accumulate, quantize_block
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = 0
+    for block in (128, 64, 32):
+        for B, N in [(1, 1), (3, 1000), (4, 4133), (8, 4096), (5, 3 * 128 * 64 + 1),
+                     (3000, 256), (65535, 32)]:
+            q, s = quantize_block(wire_rows(torch, gen, B, N, block, 127), block=block)
+            w = torch.rand((B,), generator=gen, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                acc = torch.randn((B, N), generator=gen, device="cuda").to(dtype)
+                ref = dequant_accumulate_ref(acc, q, s, w, block)
+                out = dequant_accumulate(acc, q, s, w, block=block)
+                check(out.dtype == dtype and torch.equal(bits(out), bits(ref)),
+                      f"dequant_accumulate differs at block {block}, ({B}, {N}), {dtype}")
+                a = acc.clone()
+                check(dequant_accumulate(a, q, s, w, block=block, out=a) is a
+                      and torch.equal(bits(a), bits(ref)),
+                      "dequant_accumulate in place into acc differs")
+                off = torch.empty(B * N + 1, dtype=dtype, device="cuda")[1:].view(B, N)
+                off.copy_(acc)
+                check(torch.equal(bits(dequant_accumulate(off, q, s, w, block=block)),
+                                  bits(ref)), "dequant_accumulate off the 16-byte grid differs")
+            init = dequant_accumulate(None, q, s, w, block=block)
+            check(init.shape == q.shape and torch.equal(
+                bits(init), bits(dequant_accumulate_ref(None, q, s, w, block))),
+                "dequant_accumulate's init form differs")
+            cases += 1
+    q = torch.zeros((1, 128), dtype=torch.int8, device="cuda")
+    q[0, 0] = 65
+    s = torch.full((1, 1), 149 * 2.0 ** -7, device="cuda").bfloat16()
+    w = torch.tensor([14190909 * 2.0 ** -23], device="cuda")
+    acc = torch.full((1, 128), 2.0 ** 31, device="cuda")
+    tie = dequant_accumulate(acc, q, s, w)[0, 0].item()
+    check(tie == dequant_accumulate_ref(acc, q, s, w)[0, 0].item() == 2.0 ** 31 + 256,
+          f"dequant_accumulate rounds the midpoint case to {tie}")
+    torch.cuda.synchronize()
+    print(f"kernels: dequant_accumulate on {cases} shapes (blocks 128, 64, 32, B 1 to "
+          f"65535, ragged N), f32 and bf16 acc, in place, off the 16-byte grid, and the "
+          f"init form: bit for bit; the float64-midpoint sum rounds once to 2^31 + 256")
+
+
+def small_mesh_rounds(torch, mesh):
+    """One per-rank fedlay round of each codec at tiny_lm width: 8 clients
+    on the one-rank NCCL group (every edge an intra-rank take) on the card
+    against the same round on the CPU: the output within 1e-6 x max|buf|
+    (its error is printed), the residual bit for bit (the same
+    quantization, or the same top-k set)."""
+    import numpy as np
+    from repro_torch.configs import tiny_lm
+    from repro_torch.core.mixing import build_permute_schedule
+    from repro_torch.dist.flat import FlatSpec, tree_flatten, tree_map
+    from repro_torch.dist.sync import make_mixer
+    from repro_torch.models.model import init_params
+    from repro_torch.wire.codec import WIRE_CODECS
+    C = 8
+    tree = tree_map(lambda *ls: torch.stack(ls), *[
+        init_params(tiny_lm(), torch.Generator().manual_seed(c)) for c in range(C)])
+    N = FlatSpec.for_tree(tree).size
+    R = (np.random.default_rng(9).normal(size=(C, N)) * 0.01).astype(np.float32)
+    sched = build_permute_schedule(C, 2)
+    scale = max(l.abs().max().item() for l in tree_flatten(tree)[0])
+    worst = {}
+    for name, codec in WIRE_CODECS.items():
+        outs = []
+        for device in ("cpu", "cuda"):
+            t = tree_map(lambda l: l.to(device), tree)
+            mixer = make_mixer("fedlay", sched, mesh.group, C, clients_per_device=C,
+                               codec=name)
+            args = (t, sched.weights, sched.self_weight)
+            if codec.error_feedback:
+                outs.append(mixer(*args, torch.from_numpy(R.copy()).to(device)))
+            else:
+                outs.append((mixer(*args), None))
+        (out_c, res_c), (out_g, res_g) = outs
+        err = max((a.cpu() - b).abs().max().item() for a, b in
+                  zip(tree_flatten(out_g)[0], tree_flatten(out_c)[0]))
+        check(err <= 1e-6 * scale, f"the per-rank {name} round differs between card "
+              f"and CPU by {err}")
+        if res_c is not None:
+            check(torch.equal(bits(res_g.cpu()), bits(res_c)),
+                  f"the per-rank {name} residual differs between card and CPU")
+        worst[name] = err
+    print(f"small: one per-rank fedlay round at tiny_lm width, 8 clients on the "
+          f"one-rank NCCL group, N = {N}, card vs CPU: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+          + " max abs err (tol 1e-6 x max|buf|); int8-block, int4-block and topk "
+          "residual bit for bit")
+
+
+# --------------------------------------------------------------------------
+# The per-rank mixer over a process group
+# --------------------------------------------------------------------------
+
+MESH_ROUNDS = 3
+MESH_CODEC = "int8-block"
+
+
+def mesh_resident(torch, codec, C, N) -> int:
+    """The per-rank round's resident bytes: population, mixer output
+    (which holds the error-feedback operand buf + residual until the self
+    term is written) and the residual, 3 x C x N x 4, and the wire twice:
+    the rank's encoded rows (the codec's workspace) and one slot's
+    received rows, which the mixer allocates for its call."""
+    ws = codec.workspace(C, N, "meta")
+    return 3 * C * N * 4 + 2 * sum(t.numel() * t.element_size() for t in ws.values())
+
+
+class MeshLoop:
+    """C clients of ``cfg`` on the rank of a one-rank group: one resident
+    (C, N) population buffer whose row views the local step
+    (dfl_local_step, sgd 0.05, one sequence of TRAIN_SEQ tokens a client
+    and round, as in the wire phase) updates in place, mixed by the
+    controller's per-rank mixer into the second buffer (the two swap roles
+    each round), compressed by ``codec`` with its residual, over NDMP with
+    L = 2 spaces.  Parameters are drawn from generators seeded by client."""
+
+    def __init__(self, torch, cfg, mesh, codec, seed):
+        import numpy as np
+        from repro_torch.core.ndmp import Simulator
+        from repro_torch.dist.flat import FlatSpec, tree_map
+        from repro_torch.launch.steps import dfl_local_step
+        from repro_torch.models.model import init_params
+        from repro_torch.optim.optimizers import sgd
+        from repro_torch.overlay.controller import OverlayController
+        self.torch, self.np, self.cfg = torch, np, cfg
+        C = self.C = TRAIN_CAPACITY
+        sim = Simulator(num_spaces=2, latency=0.05, heartbeat_period=0.5,
+                        probe_period=1.0, seed=0)
+        sim.seed_network(list(range(C)))
+        self.ctl = OverlayController(sim, mixer_kind="shard_map", group=mesh.group,
+                                     clients_per_device=C, fuse="flat", codec=codec)
+        shapes = init_params(cfg, torch.Generator(), device="meta")
+        self.spec = FlatSpec.for_tree(tree_map(
+            lambda l: l.unsqueeze(0).expand((C,) + tuple(l.shape)), shapes))
+        row_spec = FlatSpec.for_tree(tree_map(lambda l: l.unsqueeze(0), shapes))
+        self.pop = torch.zeros((C, self.spec.size), device="cuda")
+        for c in range(C):
+            gen = torch.Generator(device="cuda").manual_seed(seed + c)
+            row_spec.ravel(tree_map(lambda l: l.unsqueeze(0), init_params(cfg, gen)),
+                           out=self.pop[c:c + 1])
+        self.spare = torch.empty_like(self.pop)
+        codec = self.ctl.codec
+        self.ef = codec is not None and codec.error_feedback
+        self.residual = torch.zeros_like(self.pop) if self.ef else None
+        self.ws = codec.workspace(C, self.spec.size, "cuda") if codec is not None else {}
+        self.step = dfl_local_step(cfg, sgd(0.05))
+        self.rounds = 0
+
+    def buffers(self):
+        return ({self.pop.data_ptr(), self.spare.data_ptr()},
+                None if self.residual is None else self.residual.data_ptr(),
+                {k: t.data_ptr() for k, t in self.ws.items()})
+
+    def mix(self):
+        """The live mixer's round: self.pop in, self.spare out."""
+        sched = self.ctl.schedule
+        args = (self.spec.unravel(self.pop), sched.weights, sched.self_weight)
+        kw = {"buf": self.pop, "out": self.spare}
+        if self.ws:
+            kw["workspace"] = self.ws
+        return self.ctl.mixer(*args, *((self.residual,) if self.ef else ()), **kw)
+
+    def round(self, before_mix=None):
+        """One DFL round; returns (loss, local step ms, mixing ms)."""
+        torch, np = self.torch, self.np
+        self.ctl.step(1.0)
+        self.ctl.commit()
+        toks = np.stack([np.random.default_rng([u, self.rounds]).integers(
+            0, self.cfg.vocab_size, (1, TRAIN_SEQ + 1)) for u in range(self.C)])
+        t = torch.from_numpy(toks).to("cuda")
+        batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = self.step(self.spec.unravel(self.pop), (), batch,
+                                  np.ones(self.C, np.float32))
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if before_mix is not None:
+            before_mix(self)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        self.mix()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        self.pop, self.spare = self.spare, self.pop
+        self.rounds += 1
+        return loss, (t1 - t0) * 1e3, (t3 - t2) * 1e3
+
+
+def phase_mesh(torch, card, mesh):
+    """The per-rank int8-block DFL round at Llama-3.2-3B width on a one-rank
+    NCCL group, with its checks, the codec-free per-rank round's losses at
+    the same depth, and dequant_accumulate at the round's shape."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.dist.sync import global_mixer
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.gather_mix import gather_mix
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.ref import dequant_accumulate_ref
+    from repro_torch.kernels.wire_codec import (dequant_accumulate, dequantize_block,
+                                                gather_mix_int8, quantize_block)
+    from repro_torch.wire.codec import get_codec
+
+    codec = get_codec(MESH_CODEC)
+    C, block, base = TRAIN_CAPACITY, codec.block, REGISTRY["llama3.2-3b"]
+    cfg, N, resident, reckoned, limit = fit_depth(
+        torch, base, lambda n: mesh_resident(torch, codec, C, n))
+    print(f"mesh: per-rank {MESH_CODEC} round, one NCCL rank holding all {C} clients "
+          f"(G = {C}, every edge an intra-rank take), at full width cut to "
+          f"{cfg.num_layers} of {base.num_layers} layers: the most whose reckoned "
+          f"bytes, {resident / 1e9:.2f} GB resident (population, mixer output and "
+          f"residual, 3 x {C} x N x 4, N = {N}, and the wire twice, sent and received, "
+          f"{(resident - 12 * C * N) / 1e9:.2f} GB) + {(reckoned - resident) / 1e9:.2f} "
+          f"GB for the local step, stay within 80 % of the card's "
+          f"{limit / 0.8 / 1e9:.2f} GB")
+
+    # the codec-free per-rank round at the same depth: its losses, and its
+    # last round against gather_mix on the same population
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = MeshLoop(torch, cfg, mesh, None, seed=1000)
+    free_runs = [free.round() for _ in range(MESH_ROUNDS)]
+    out, inp = free.pop, free.spare
+    gm_out = torch.empty_like(inp)
+    gather_mix.launches = 0
+    global_mixer("fedlay", free.ctl.schedule, fuse="flat", flat_io=True)(inp, out=gm_out)
+    check(gather_mix.launches == 1, "the codec-free global round did not run gather_mix")
+    err_free = max((out[:, a:a + CHUNK] - gm_out[:, a:a + CHUNK]).abs().max().item()
+                   for a in range(0, N, CHUNK))
+    scale = max(inp[:, a:a + CHUNK].abs().max().item() for a in range(0, N, CHUNK))
+    check(err_free <= 1e-6 * scale, f"the codec-free per-rank round differs from "
+          f"gather_mix by {err_free}")
+    print(f"mesh: codec-free per-rank round {MESH_ROUNDS - 1} against gather_mix "
+          f"(global_mixer, one launch) on the same population: max abs err "
+          f"{err_free:.3e} <= 1e-6 x max|buf| {scale:.3f}")
+    del free, out, inp, gm_out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = MeshLoop(torch, cfg, mesh, MESH_CODEC, seed=1000)
+    torch.cuda.synchronize()
+    print(f"mesh: population ({C}, {N}) f32 and its residual, {C} clients drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ptrs = loop.buffers()
+    kernels = (dequant_accumulate, quantize_block, mix_accumulate, gather_mix_int8,
+               gather_mix, dequantize_block, flash_decode)
+    want = [2 * 2, 1, 1, 0, 0, 0, 0]             # 2L slots a round, L = 2
+    snap = {}
+
+    def keep_residual(lp):
+        snap["res_in"] = lp.residual.to("cpu", copy=True)
+
+    for k in kernels:
+        k.launches = 0
+    runs = []
+    for r in range(MESH_ROUNDS):
+        start = [k.launches for k in kernels]
+        loss, local_ms, mix_ms = loop.round(
+            keep_residual if r == MESH_ROUNDS - 1 else None)
+        got = [k.launches - a for k, a in zip(kernels, start)]
+        check(got == want, f"round {r} launched "
+              f"{dict(zip((k.__name__ for k in kernels), got))}")
+        check(np.isfinite(loss), f"round {r} loss is not finite")
+        runs.append((loss, local_ms, mix_ms))
+        print(f"mesh: {MESH_CODEC} round {r}: loss {loss:.6f}; local step "
+              f"{local_ms:.1f} ms, mixing {mix_ms:.2f} ms")
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    check(loop.buffers() == ptrs, "a resident buffer was reallocated")
+    check(peak <= reckoned * (1 + PEAK_MARGIN),
+          f"peak memory {peak / 1e9:.2f} GB above the reckoned {reckoned / 1e9:.2f} GB "
+          f"+ {PEAK_MARGIN:.0%}")
+    print(f"mesh: launches a round: dequant_accumulate 4 (2L slots), quantize_block 1, "
+          f"mix_accumulate 1 (the self term), the global kernels 0, in each of "
+          f"{MESH_ROUNDS} rounds; 3 resident buffers and the wire kept their data_ptr; "
+          f"peak memory {peak / 1e9:.2f} GB <= {reckoned / 1e9:.2f} GB reckoned + "
+          f"{PEAK_MARGIN:.0%} ({card})")
+
+    # the last round against the global int8-block round on the same
+    # population and residual
+    sched = loop.ctl.schedule
+    out, inp, res = loop.pop, loop.spare, loop.residual
+    res_rank = res.to("cpu", copy=True)
+    res.copy_(snap.pop("res_in"))
+    g_out = torch.empty_like(inp)
+    gather_mix_int8.launches = 0
+    global_mixer("fedlay", sched, codec=MESH_CODEC, flat_io=True)(
+        inp, res, out=g_out, workspace=loop.ws)
+    check(gather_mix_int8.launches == 1, "the global round did not run gather_mix_int8")
+    err = 0.0
+    for a in range(0, N, CHUNK):
+        b = min(a + CHUNK, N)
+        check(torch.equal(bits(res[:, a:b]), bits(res_rank[:, a:b].to("cuda"))),
+              f"the residual differs from the global round's in columns {a}..{b}")
+        err = max(err, (out[:, a:b] - g_out[:, a:b]).abs().max().item())
+    scale = max(inp[:, a:a + CHUNK].abs().max().item() for a in range(0, N, CHUNK))
+    check(err <= 1e-6 * scale, f"the per-rank round differs from the global round by {err}")
+    print(f"mesh: {MESH_CODEC} round {MESH_ROUNDS - 1} against the global {MESH_CODEC} "
+          f"round (gather_mix_int8, one launch) on the same population and residual: "
+          f"residual bit for bit; output max abs err {err:.3e} <= 1e-6 x max|buf| "
+          f"{scale:.3f}")
+    del res_rank, g_out
+
+    # where a round's time goes
+    steady = range(1, MESH_ROUNDS)
+    local = sum(runs[i][1] for i in steady) / len(steady)
+    mix = sum(runs[i][2] for i in steady) / len(steady)
+    free_mix = sum(free_runs[i][2] for i in steady) / len(steady)
+    print(f"breakdown: per-rank {MESH_CODEC} DFL round at {cfg.num_layers} layer(s), "
+          f"{C} clients: over rounds 1-{MESH_ROUNDS - 1} local step {local:.1f} ms and "
+          f"mixing {mix:.2f} ms a round; the codec-free per-rank round's mixing "
+          f"{free_mix:.2f} ms ({card})")
+    wall, by_kernel = profiled(torch, loop.mix)
+    busy = sum(by_kernel.values())
+    span = device_ms(torch, [loop.mix], 1)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print(f"breakdown: per-rank {MESH_CODEC} mixing round profiled: host {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms ({100 * busy / wall:.1f} %), idle share "
+          f"{100 * (1 - busy / wall):.1f} %; the round's device span (CUDA events, "
+          f"queued ahead) {span:.2f} ms; kernels (ms): "
+          + "; ".join(f"{k[:40]} {ms:.3f}" for k, ms in top) + f" ({card})")
+
+    # dequant_accumulate at the round's shape: a slot's fold of the (C, Nq)
+    # received rows into the (C, N) accumulator
+    q, s = loop.ws["q"], loop.ws["scales"]
+    NB, Nq = s.shape[1], q.shape[1]
+    acc, scratch = loop.spare, loop.residual
+    w = torch.as_tensor(sched.weights[:, 0], device="cuda").contiguous()
+    dequant_accumulate(acc, q, s, w, block=block, out=scratch)
+    err_k = 0.0
+    for a in range(0, N, CHUNK):
+        b = min(a + CHUNK, N)
+        ref = dequant_accumulate_ref(acc[:, a:b], q[:, a:b],
+                                     s[:, a // block:-(-b // block)], w, block)
+        check(torch.equal(bits(scratch[:, a:b]), bits(ref)),
+              f"dequant_accumulate differs from its plain version in columns {a}..{b}")
+        err_k = max(err_k, (scratch[:, a:b] - ref).abs().max().item())
+        del ref
+    ms = device_ms(torch, [lambda: dequant_accumulate(acc, q, s, w, block=block,
+                                                      out=acc)], 5)
+
+    def plain():
+        for a in range(0, N, CHUNK):
+            b = min(a + CHUNK, N)
+            dequant_accumulate_ref(acc[:, a:b], q[:, a:b],
+                                   s[:, a // block:-(-b // block)], w, block)
+    plain_ms = device_ms(torch, [plain], 1)
+    deq3, w2 = scratch.view(C, NB, block), w[:, None]
+
+    def library():
+        torch.mul(q.view(C, NB, block), s.float()[..., None], out=deq3)
+        acc.addcmul_(scratch, w2)
+    lib_ms = device_ms(torch, [library], 5)
+    nbytes, ops = C * (8 * N + Nq + 2 * NB) + 4 * C, 3 * C * N
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    bound_ms, bound_by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    print(f"mesh: dequant_accumulate f32 at the round's shape C = {C}, N = {N} (a "
+          f"slot's fold, in place): bit for bit with its plain version; device time "
+          f"per call: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (over column chunks "
+          f"of {CHUNK}), bound {bound_ms:.3f} ms ({bound_by}, {nbytes / 1e9:.2f} GB), "
+          f"library {lib_ms:.3f} ms (torch.mul of q and the scales, then "
+          f"addcmul_) ({card})")
+    uniform = float(np.log(cfg.vocab_size))
+    print(f"mesh: losses at {cfg.num_layers} layer(s), per-rank {MESH_CODEC} against "
+          f"the codec-free per-rank round, round by round (ln vocab = {uniform:.4f}): "
+          + "; ".join(f"{a[0]:.6f} / {b[0]:.6f}" for a, b in zip(runs, free_runs)))
+    return {"name": "dequant_accumulate", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dequant_accumulate.cu",
+            "replaces": "src/repro/kernels/wire_codec.py:176",
+            "launches": launches["dequant_accumulate"], "max_abs_err": err_k, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1305,6 +1704,7 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch import resolve_device
     from repro_torch.kernels.build import SOURCES, build
+    from repro_torch.launch.mesh import make_client_mesh
 
     resolve_device("cuda")          # TF32 off for f32 products
     card = card_line()
@@ -1320,29 +1720,43 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}:", line.strip())
 
-    phase_kernels(torch, F, card)
-    check_gather_mix(torch)
-    check_wire_kernels(torch)
-    phase_small(torch)
-    small_train(torch)
-    for codec in WIRE_CODECS_RUN:
-        small_train(torch, codec)
-    small_codec_rounds(torch)
-    serve_entry = phase_slice(torch, F, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_entry = phase_train(torch, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    wire = {}
-    for codec in WIRE_CODECS_RUN:
-        entries, _, _ = phase_wire(torch, card, codec)
-        wire.update(entries)
+    # the one-rank client group the per-rank mixer runs over
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mesh = make_client_mesh(0, 1, f"tcp://127.0.0.1:{port}", device="cuda",
+                            timeout_s=300)
+    print(f"mesh: one-rank NCCL client group (torch.distributed "
+          f"{torch.distributed.get_backend(mesh.group)}, world size {mesh.size})")
+    try:
+        phase_kernels(torch, F, card)
+        check_gather_mix(torch)
+        check_wire_kernels(torch)
+        check_dequant_accumulate(torch)
+        phase_small(torch)
+        small_train(torch)
+        for codec in WIRE_CODECS_RUN:
+            small_train(torch, codec)
+        small_codec_rounds(torch)
+        small_mesh_rounds(torch, mesh)
+        serve_entry = phase_slice(torch, F, card)
         gc.collect()
         torch.cuda.empty_cache()
+        train_entry = phase_train(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        wire = {}
+        for codec in WIRE_CODECS_RUN:
+            entries, _, _ = phase_wire(torch, card, codec)
+            wire.update(entries)
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh_entry = phase_mesh(torch, card, mesh)
+    finally:
+        mesh.close()
     print(json.dumps({"kernels": [serve_entry, train_entry] + [
-        wire[k] for k in ("mix_accumulate", "quantize_block", "dequantize_block",
-                          "gather_mix_int8")]}))
+        wire[k] for k in ("mix_accumulate", "quantize_block", "dequantize_block")]
+        + [mesh_entry, wire["gather_mix_int8"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

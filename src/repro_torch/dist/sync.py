@@ -1,31 +1,57 @@
-"""FedLay mixing over the leading client axis of one resident population.
+"""FedLay mixing: the overlay's schedule turned into mixing rounds.
 
-The port of the global-view half of ``repro/dist/sync.py``
-(``global_mixer``, ``sync.py:395-600``).  The control plane
+The port of ``repro/dist/sync.py``.  The control plane
 (:mod:`repro_torch.core.ndmp`, :mod:`repro_torch.overlay.controller`)
 freezes the overlay into a :class:`~repro_torch.core.mixing.PermuteSchedule`
-(2L ring sources + MEP confidence weights); :func:`global_mixer` turns it
-into a mixing round over the client axis:
+(2L ring sources + MEP confidence weights); two mixer families turn it
+into a mixing round:
 
-* ``fuse="flat"`` — the hot path.  The params tree is one lane-padded
-  (C, N) buffer (:class:`repro_torch.dist.flat.FlatSpec`) and the whole
-  round is one :func:`repro_torch.kernels.gather_mix.gather_mix` call:
-  static (C, 2L+1) source rows (self first, then the schedule's perms)
-  and a runtime weight table.  Masking (dead capacity slots, multirate
-  skips, unreachable edges) only rewrites the weight table.
-* ``fuse=None`` / ``"tree"`` — the per-leaf walk over the tree, the
-  reference's unfused path.
-* ``codec=`` (:mod:`repro_torch.wire.codec`; implies ``fuse="flat"``)
-  — the wire-compressed round (``sync.py:553-570``): the population is
-  encoded once a round, the neighbour term mixes the encoded form
-  through the codec's ``gather`` (int8-block: ``gather_mix_int8``) and
-  the self term uses the true rows through ``mix_accumulate``.  An
-  error-feedback codec encodes ``buf + residual`` and carries the
-  residual.
+* :func:`global_mixer` — one resident population, the client axis the
+  leading dim of every tensor (``sync.py:395-600``):
 
-The ``shard_map`` mixers (``fedlay_mix``, ``make_mixer``) wait for
-ROADMAP.md Queue 1 item 10.  :func:`sync_bytes_per_client` is the
-paper's per-round communication accounting (§IV-D).
+  - ``fuse="flat"`` — the hot path.  The params tree is one lane-padded
+    (C, N) buffer (:class:`repro_torch.dist.flat.FlatSpec`) and the whole
+    round is one :func:`repro_torch.kernels.gather_mix.gather_mix` call:
+    static (C, 2L+1) source rows (self first, then the schedule's perms)
+    and a runtime weight table.  Masking (dead capacity slots, multirate
+    skips, unreachable edges) only rewrites the weight table.
+  - ``fuse=None`` / ``"tree"`` — the per-leaf walk over the tree, the
+    reference's unfused path.
+  - ``codec=`` (:mod:`repro_torch.wire.codec`; implies ``fuse="flat"``)
+    — the wire-compressed round (``sync.py:553-570``): the population is
+    encoded once a round, the neighbour term mixes the encoded form
+    through the codec's ``gather`` (int8-block: ``gather_mix_int8``) and
+    the self term uses the true rows through ``mix_accumulate``.  An
+    error-feedback codec encodes ``buf + residual`` and carries the
+    residual.
+
+* :func:`fedlay_mix` / :func:`make_mixer` — the per-rank mixer, the
+  counterpart of the reference's ``shard_map`` program
+  (``sync.py:143-392``): every rank of a ``torch.distributed`` process
+  group runs it on its own G clients.  ``ppermute`` becomes
+  point-to-point sends and receives (``dist.batch_isend_irecv``),
+  ``pmean`` ``dist.all_reduce``, ``axis_index`` the rank and ``psum(1)``
+  the world size.  With one client a rank each slot is one exchange of
+  the full row; with G > 1 edges whose source lies on the same rank are
+  local takes (zero network bytes) and cross-rank edges run as the
+  edge-colored rounds of :func:`repro_torch.core.mixing.grouped_routing`.
+  Each slot's received rows fold into the accumulator with
+  ``mix_accumulate``, or with a codec through its ``accumulate``
+  (int8-block: ``dequant_accumulate``).
+
+**The grouped (G, ...) contract** (per-rank mixer, the reference's):
+client ``i`` lives on rank ``i // G`` at local row ``i % G``; every tree
+leaf carries a leading local-client dim of size G, ``weights`` is the
+rank's (G, 2L) slice of the schedule's weight table, ``self_weight`` its
+(G,) slice and ``mask``, when given, its (G,) slice of the (n,) mask.
+So ``sched.num_clients == G × world size``.  Every part crosses the
+wire as the bytes of its rows (a ``uint8`` view, exact for every dtype),
+and each rank builds its list of sends and receives from the host-static
+routing tables, so all ranks agree on every exchange.
+
+:func:`sync_bytes_per_client` is the paper's per-round communication
+accounting (§IV-D): grouped mixing pays network bytes for cross-rank
+edges only.
 """
 
 from __future__ import annotations
@@ -35,13 +61,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.mixing import PermuteSchedule, check_group_size
+import torch.distributed as dist
+
+from ..core.mixing import PermuteSchedule, check_group_size, grouped_routing
 from ..kernels.gather_mix import gather_mix
 from ..kernels.mix_accumulate import mix_accumulate
 from ..wire.codec import get_codec
 from .flat import FlatSpec, tree_flatten, tree_map
 
-#: Sync strategies understood by :func:`global_mixer`.
+#: Sync strategies understood by both mixer families.
 SYNC_STRATEGIES = ("fedlay", "allreduce", "ring", "none")
 
 #: Mixing-round execution modes: ``None``/``"tree"`` — the per-leaf tree
@@ -107,6 +135,299 @@ def _kept_rows(mask, C: int):
 
 def _row_shape(leaf: torch.Tensor):
     return (leaf.shape[0],) + (1,) * (leaf.dim() - 1)
+
+
+def _group_layout(group):
+    """(rank, world size) in ``group`` (None: the default group); raises
+    when no process group is initialized."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "the per-rank mixer runs inside an initialized torch.distributed "
+            "process group (repro_torch.launch.mesh.make_client_mesh)")
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _wire_bytes(t: torch.Tensor) -> torch.Tensor:
+    """The bytes of a contiguous tensor, as a uint8 view of its storage."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _empty(like: torch.Tensor) -> torch.Tensor:
+    """A contiguous buffer of ``like``'s shape, dtype and device, whose
+    rows a receive may write through byte views."""
+    return torch.empty(like.shape, dtype=like.dtype, device=like.device)
+
+
+def _exchange(ops) -> None:
+    """Run one batch of point-to-point sends and receives and wait for it;
+    a rank with nothing to send or receive in it makes no call."""
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _receiver(sched: PermuteSchedule, G: int, rank: int, group) -> Callable:
+    """``receive(parts, k, outs)``: for each (G, ...) tensor of ``parts``,
+    the rows the rank's G clients receive in slot k, written into the
+    matching tensor of ``outs`` and returned.  The parts of one exchange
+    travel together, one tag each (``sync.py:218-239``)."""
+    world = dist.group.WORLD if group is None else group
+
+    def p2p(op, t, r, tag):
+        return dist.P2POp(op, _wire_bytes(t), dist.get_global_rank(world, r), group, tag)
+
+    if G == 1:
+        # one client a rank: every slot is one exchange of the full row
+        # (the reference's one ppermute a slot, zero-weight edges too)
+        def receive(parts, k, outs):
+            perm = sched.perms[k]
+            src, dst = perm[rank], perm.index(rank)
+            ops = []
+            for tag, (x, o) in enumerate(zip(parts, outs)):
+                if src == rank:
+                    o.copy_(x)
+                    continue
+                ops += [p2p(dist.isend, x, dst, tag), p2p(dist.irecv, o, src, tag)]
+            _exchange(ops)
+            return outs
+        return receive
+
+    rt = grouped_routing(sched, G)
+
+    def receive(parts, k, outs):
+        isrc, ion = rt.intra_src[k][rank], rt.intra_on[k][rank]
+        for x, o in zip(parts, outs):
+            # one copy a row, a device-to-device memcpy: on an H100 the
+            # int8-block round's takes at 8 clients take 10.1 ms so,
+            # 12.6 ms as one index_select a part
+            for row in range(G):
+                if ion[row] > 0:                 # an intra-rank edge: a take
+                    o[row].copy_(x[int(isrc[row])])
+                else:                            # cross-rank, or no edge
+                    o[row].zero_()
+        for rnd in rt.rounds[k]:
+            dst = [d for s, d in rnd.pairs if s == rank]
+            src = [s for s, d in rnd.pairs if d == rank]
+            ops = []
+            for tag, (x, o) in enumerate(zip(parts, outs)):
+                if dst:
+                    ops.append(p2p(dist.isend, x[int(rnd.send_row[rank])], dst[0], tag))
+                if src:
+                    ops.append(p2p(dist.irecv, o[int(rnd.recv_slot[rank])], src[0], tag))
+            _exchange(ops)
+        return outs
+    return receive
+
+
+def fedlay_mix(tree, sched: PermuteSchedule, weights, self_weight,
+               group=None, mask=None, fuse: Optional[str] = None,
+               codec=None, residual: Optional[torch.Tensor] = None, *,
+               buf: Optional[torch.Tensor] = None,
+               out: Optional[torch.Tensor] = None, workspace=None):
+    """One FedLay mixing round on this rank's G clients (the reference's
+    ``shard_map`` body, ``sync.py:143-303``), over the process group
+    ``group`` (None: the default group).
+
+    ``tree`` leaves carry the leading local-client dim G (the module's
+    grouped contract), ``weights`` is the rank's (G, 2L) weight slice and
+    ``self_weight`` its (G,) self weights; the round equals the dense
+    ``W @ X`` of :func:`repro_torch.core.mixing.schedule_mixing_matrix`.
+    A schedule for other than G × world-size clients raises
+    ``ValueError``; with no initialized process group the call raises
+    ``RuntimeError``.
+
+    ``mask`` (the rank's (G,) 0/1 slice) makes the round mask-aware: a
+    masked-out client keeps its own model, live clients drop its
+    contribution and renormalize over the surviving weights — the
+    per-rank image of :func:`repro_torch.core.mixing.masked_mixing_matrix`.
+    The mask's rows ride the same routing as the models.
+
+    ``fuse="flat"`` runs the round on the flat buffer: the tree is raveled
+    into a lane-padded (G, N) buffer and each slot's received rows stream
+    into the accumulator through ``mix_accumulate``.  ``codec`` (implies
+    the flat path) sends each slot the *encoded* parts of the rows
+    through the same routing and folds them with the codec's
+    ``accumulate`` (int8-block: ``dequant_accumulate``); the self term
+    uses the true rows.  An error-feedback codec needs ``residual``
+    ((G, N) f32): the wire carries ``enc(buf + residual)``, the residual
+    is updated in place (masked-out rows keep theirs) and the call
+    returns ``(tree, residual)``.
+
+    The port's buffers, flat path only: ``buf`` is the (G, N) buffer the
+    tree is raveled into (free for a tree of views of it, as
+    :meth:`~repro_torch.dist.flat.FlatSpec.unravel` gives); ``out`` the
+    (G, N) buffer the round writes, whose views the returned tree holds
+    (allocated when None; never ``buf``, which the round reads after it
+    writes ``out``); ``workspace`` the codec's
+    :meth:`~repro_torch.wire.codec.WireCodec.workspace` for the round's
+    wire.  The received rows of a slot land in buffers allocated once a
+    call."""
+    codec, fuse = resolve_wire(codec, fuse)
+    ef = codec is not None and codec.error_feedback
+    if ef and residual is None:
+        raise ValueError(
+            f"codec {codec.name!r} uses error feedback; pass the (G, N) "
+            f"residual state (and use the returned residual)")
+    if fuse != "flat" and not (buf is None and out is None and workspace is None):
+        raise ValueError("buf, out and workspace are buffers of the flat path "
+                         "(fuse='flat' or a codec)")
+    leaves = tree_flatten(tree)[0]
+    G, device = leaves[0].shape[0], leaves[0].device
+    rank, world = _group_layout(group)
+    if sched.num_clients != G * world:
+        raise ValueError(
+            f"schedule is for {sched.num_clients} clients but the grouped "
+            f"layout holds {G} x {world} ranks")
+    receive = _receiver(sched, G, rank, group)
+    weights = torch.as_tensor(weights, device=device)
+    self_weight = torch.as_tensor(self_weight, device=device)
+    masked = mask is not None
+    if masked:
+        m = torch.as_tensor(mask, dtype=torch.float32, device=device).reshape(G)
+        got = _empty(m)
+        eff = [weights[:, k].float() * receive((m,), k, (got,))[0]
+               for k in range(sched.num_slots)]
+        total = self_weight.float() + sum(eff)
+        ok = (m > 0) & (total > 0)
+        safe = torch.where(total > 0, total, torch.ones_like(total))
+        self_w = self_weight.float() / safe
+        slot_w = [e / safe for e in eff]
+    else:
+        self_w = self_weight
+        slot_w = [weights[:, k] for k in range(sched.num_slots)]
+
+    if fuse == "flat":
+        spec = FlatSpec.for_tree(tree)
+        buf = spec.ravel(tree, out=buf)                    # (G, N)
+        if out is None:
+            out = torch.empty_like(buf)
+        elif out.data_ptr() == buf.data_ptr():
+            raise ValueError("the round reads buf after it writes out: "
+                             "out must not be buf")
+        if codec is None:
+            wire = (buf,)
+        elif ef:
+            if tuple(residual.shape) != tuple(buf.shape):
+                raise ValueError(f"residual shape {tuple(residual.shape)} != flat "
+                                 f"buffer {tuple(buf.shape)}")
+            operand = torch.add(buf, residual, out=out)
+            kept = _kept_rows(m.cpu().numpy(), G) if masked else None
+            if kept is None:
+                wire, _ = codec.encode_ef(operand, workspace, residual_out=residual)
+            else:
+                # masked-out rows keep their residual: they sent nothing
+                wire, fresh = codec.encode_ef(operand, workspace, residual_out=operand)
+                for r in kept:
+                    residual[r].copy_(fresh[r])
+        else:
+            wire = codec.encode(buf, workspace)
+        acc = mix_accumulate(None, buf, self_w, out=out)
+        got = tuple(_empty(part) for part in wire)
+        for k in range(sched.num_slots):
+            recv = receive(wire, k, got)
+            if codec is None:
+                mix_accumulate(acc, recv[0], slot_w[k], out=acc)
+            else:
+                codec.accumulate(acc, recv, slot_w[k], out=acc)
+        if masked:
+            for r in _rows(~ok):
+                acc[r].copy_(buf[r])
+        mixed = spec.unravel(acc)
+        return (mixed, residual) if ef else mixed
+
+    def mix_leaf(leaf):
+        shape = _row_shape(leaf)
+        acc = leaf * self_w.reshape(shape).to(leaf.dtype)
+        x, got = leaf.contiguous(), _empty(leaf)
+        for k in range(sched.num_slots):
+            recv = receive((x,), k, (got,))[0]
+            acc = acc + recv * slot_w[k].reshape(shape).to(leaf.dtype)
+        return torch.where(ok.reshape(shape), acc, leaf) if masked else acc
+    return tree_map(mix_leaf, tree)
+
+
+def make_mixer(strategy: str, sched: Optional[PermuteSchedule], group,
+               num_clients: int, clients_per_device: int = 1,
+               fuse: Optional[str] = None, codec=None) -> Callable:
+    """A per-rank mixer ``(tree, weights, self_w) -> tree`` for one sync
+    strategy over the process group ``group`` (None: the default group),
+    where the reference's ``make_mixer`` (``sync.py:306-392``) takes a
+    ``shard_map`` axis name.
+
+    ``num_clients`` is the total client count; with
+    ``clients_per_device = G`` the group holds ``num_clients / G`` ranks
+    and tree leaves carry the grouped leading (G, ...) dim.  ``fuse`` and
+    ``codec`` select the flat path and the wire codec of the fedlay and
+    ring rounds (:func:`fedlay_mix`), whose mixers also take
+    :func:`fedlay_mix`'s keyword-only buffers; for an error-feedback
+    codec their signature grows a trailing residual, ``(tree, weights,
+    self_w, residual) -> (tree, residual)``.  allreduce reduces in the
+    network and none sends nothing, so both ignore ``fuse`` and
+    ``codec``.
+
+    * ``fedlay``    — the schedule's sources (paper §III); with G > 1
+      intra-rank takes and edge-colored cross-rank rounds;
+    * ``allreduce`` — the uniform mean over all clients: each rank's
+      G-row mean in f32, then ``dist.all_reduce`` over the ranks and a
+      division by the world size (``pmean``);
+    * ``ring``      — the identity-ring neighbour average over all clients
+      (ignores the schedule; the rank takes its rows of
+      :func:`ring_schedule`'s tables);
+    * ``none``      — isolated local training.
+    """
+    G = clients_per_device
+    check_group_size(num_clients, G)
+    codec, fuse = resolve_wire(codec, fuse)
+    ef = codec is not None and codec.error_feedback and strategy in ("fedlay", "ring")
+
+    if strategy == "none":
+        return lambda tree, weights, self_w: tree
+
+    if strategy == "allreduce":
+        def allreduce_mixer(tree, weights, self_w):
+            _, world = _group_layout(group)
+
+            def mean_leaf(leaf):
+                m = leaf.float().mean(dim=0, keepdim=True)
+                dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+                return (m / world).to(leaf.dtype).expand(leaf.shape).clone()
+            return tree_map(mean_leaf, tree)
+        return allreduce_mixer
+
+    if strategy == "ring":
+        ring = ring_schedule(num_clients)
+
+        def rows(table):
+            rank = _group_layout(group)[0]
+            return table[rank * G:(rank + 1) * G]
+
+        if ef:
+            def ring_mixer_ef(tree, weights, self_w, residual, **kw):
+                return fedlay_mix(tree, ring, rows(ring.weights), rows(ring.self_weight),
+                                  group, fuse=fuse, codec=codec, residual=residual, **kw)
+            return ring_mixer_ef
+
+        def ring_mixer(tree, weights, self_w, **kw):
+            return fedlay_mix(tree, ring, rows(ring.weights), rows(ring.self_weight),
+                              group, fuse=fuse, codec=codec, **kw)
+        return ring_mixer
+
+    if strategy == "fedlay":
+        if sched is None:
+            raise ValueError("fedlay mixer needs a PermuteSchedule")
+        if sched.num_clients != num_clients:
+            raise ValueError(
+                f"schedule is for {sched.num_clients} clients, the group holds "
+                f"{num_clients} (= {num_clients // G} ranks x {G})")
+        if ef:
+            return lambda tree, weights, self_w, residual, **kw: fedlay_mix(
+                tree, sched, weights, self_w, group, fuse=fuse, codec=codec,
+                residual=residual, **kw)
+        return lambda tree, weights, self_w, **kw: fedlay_mix(
+            tree, sched, weights, self_w, group, fuse=fuse, codec=codec, **kw)
+
+    raise ValueError(
+        f"unknown sync strategy {strategy!r}; choose from {SYNC_STRATEGIES}")
 
 
 def global_mixer(strategy: str,

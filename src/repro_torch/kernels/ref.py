@@ -3,8 +3,8 @@ and what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
 Counterpart of ``repro/kernels/ref.py``.  The oracles of the ported
 kernels (``flash_decode``, ``gather_mix``, ``mix_accumulate`` and the
-wire codec's ``quantize_block``, ``dequantize_block`` and
-``gather_mix_int8``) are here, with :func:`round_matrix`, which the two
+wire codec's ``quantize_block``, ``dequantize_block``,
+``dequant_accumulate`` and ``gather_mix_int8``) are here, with :func:`round_matrix`, which the two
 gathers run outside their kernels, and :func:`padded_width`; the others
 arrive with the kernels that need them (ROADMAP.md, Queue 2).
 """
@@ -87,20 +87,39 @@ def gather_mix_ref(buf: torch.Tensor, srcs, weights: torch.Tensor) -> torch.Tens
     return acc.to(buf.dtype)
 
 
+def _fused_add_f32(acc: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """acc + p rounded once to f32, as one fused multiply-add rounds it,
+    for acc and p float64 tensors that hold their values exactly (acc an
+    f32 value, p the product of two f32 values, which has at most 48
+    significant bits).  The float64 sum is rounded to odd (the
+    neighbour with an odd last bit whenever the sum is inexact, found
+    from its exact error by TwoSum), after which one rounding to f32,
+    half to even, is the correctly rounded sum: float64 carries more
+    than 24 + 1 bits, so the earlier rounding cannot make a tie."""
+    s = acc + p
+    bb = s - acc
+    err = (acc - (s - bb)) + (p - bb)          # exact: s + err == acc + p
+    even = (s.view(torch.int64) & 1) == 0
+    fix = (err != 0) & even & torch.isfinite(s)
+    away = torch.where(err > 0, torch.full_like(s, float("inf")),
+                       torch.full_like(s, float("-inf")))
+    return torch.where(fix, torch.nextafter(s, away), s).float()
+
+
 def mix_accumulate_ref(acc, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """acc (B, N) or None, x (B, N), w (B,) → ``acc + w·x`` in acc's dtype
     (``w·x`` in x's dtype when acc is None), f32 math.
 
     The reference's ``acc + x·w`` reaches the TPU kernel and XLA on the
-    CPU as one fused multiply-add, rounded once; here it is computed in
-    float64 (the product of two f32 values is exact there) and rounded
-    to f32 once, which is the fused result except where the float64 sum
-    lands exactly between two f32 values (then one f32 spacing off).
-    The init form is one f32 multiply, as in the reference."""
+    CPU as one fused multiply-add, rounded once; here the product of the
+    two f32 values is formed exactly in float64 and the sum rounded once
+    to f32 (:func:`_fused_add_f32`), so it is the fused result
+    everywhere.  The init form is one f32 multiply, as in the
+    reference."""
     wf = w.to(device=x.device, dtype=torch.float32)[:, None]
     if acc is None:
         return (x.float() * wf).to(x.dtype)
-    return (acc.double() + x.double() * wf.double()).float().to(acc.dtype)
+    return _fused_add_f32(acc.double(), x.double() * wf.double()).to(acc.dtype)
 
 
 def padded_width(n: int, block: int) -> int:
@@ -157,3 +176,28 @@ def gather_mix_int8_ref(q: torch.Tensor, scales: torch.Tensor, srcs,
     rows (:func:`dequantize_block_ref`) mixed by :func:`gather_mix_ref`,
     (C, NB·block) f32."""
     return gather_mix_ref(dequantize_block_ref(q, scales, block), srcs, weights)
+
+
+def dequant_accumulate_ref(acc, q: torch.Tensor, scales: torch.Tensor,
+                           w: torch.Tensor, block: int = 128) -> torch.Tensor:
+    """The int8-block receive fold: ``acc + w[:, None]·dequant(q, scales)``
+    over (B, N) rows, for q (B, Nq) int8, scales (B, Nq / block) bf16 and
+    w (B,) (``repro/kernels/wire_codec.py:dequant_accumulate``).
+
+    ``q·s`` is exact in f32 (8 bits times an 8-bit significand).  With
+    ``acc`` (B, N), N ≤ Nq, f32 or bf16, the result has acc's width and
+    dtype: the sum ``acc + w·(q·s)`` rounded once to f32, as one fused
+    multiply-add rounds it (the reference's sum reaches XLA's CPU
+    backend and the TPU as one; see :func:`_fused_add_f32`), then to
+    acc's dtype.  With ``acc=None`` it is the init form ``w·(q·s)``, one
+    f32 multiply, over the full wire width Nq in f32.  An acc wider than
+    the wire raises ``ValueError``."""
+    B, Nq = q.shape
+    N = Nq if acc is None else acc.shape[1]
+    if N > Nq:
+        raise ValueError(f"acc width {N} exceeds wire width {Nq}")
+    deq = dequantize_block_ref(q, scales, block)[:, :N]
+    wf = w.to(device=q.device, dtype=torch.float32)[:, None]
+    if acc is None:
+        return deq * wf
+    return _fused_add_f32(acc.double(), deq.double() * wf.double()).to(acc.dtype)

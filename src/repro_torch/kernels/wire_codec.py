@@ -1,13 +1,13 @@
-"""The wire codec's kernels: block quantization, its decode, and the
-mixing round over the encoded population.
+"""The wire codec's kernels: block quantization, its decode, the fused
+receive fold, and the mixing round over the encoded population.
 
-The port of ``repro/kernels/wire_codec.py`` (Pallas TPU kernels) for the
-global flat round: :func:`quantize_block` (``csrc/quantize_block.cu``),
-:func:`dequantize_block` (``csrc/dequantize_block.cu``) and
-:func:`gather_mix_int8` (``csrc/gather_mix_int8.cu``); each source's
-header says what bounds it.  The fused receive of the shard_map path,
-``dequant_accumulate``, waits for that path (ROADMAP.md Queue 1 item
-10).
+The port of ``repro/kernels/wire_codec.py`` (Pallas TPU kernels):
+:func:`quantize_block` (``csrc/quantize_block.cu``),
+:func:`dequantize_block` (``csrc/dequantize_block.cu``),
+:func:`dequant_accumulate` (``csrc/dequant_accumulate.cu``, the int8-block
+receive of the per-rank mixer, :func:`repro_torch.dist.sync.fedlay_mix`)
+and :func:`gather_mix_int8` (``csrc/gather_mix_int8.cu``, the global
+round's); each source's header says what bounds it.
 
 **Block layout** (``repro/kernels/wire_codec.py:31-41``): a (B, N) f32
 buffer is cut along its columns into NB = ceil(N / block) blocks, the
@@ -32,11 +32,11 @@ from typing import Optional
 import torch
 
 from .gather_mix import MAX_C, _sm_count
-from .ref import (dequantize_block_ref, gather_mix_int8_ref, padded_width,
-                  quantize_block_ref, round_matrix)
+from .ref import (dequant_accumulate_ref, dequantize_block_ref, gather_mix_int8_ref,
+                  padded_width, quantize_block_ref, round_matrix)
 
 __all__ = ["padded_width", "quantize_block", "dequantize_block",
-           "gather_mix_int8", "KERNEL_BLOCKS"]
+           "dequant_accumulate", "gather_mix_int8", "KERNEL_BLOCKS"]
 
 #: The block widths the CUDA kernels serve.
 KERNEL_BLOCKS = (32, 64, 128)
@@ -45,6 +45,8 @@ _ptr, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "quantize_block": [_ptr, _ll, _ptr, _ptr, _ptr, _ll, _int, _ll, _int, _int, _int, _ptr],
     "dequantize_block": [_ptr, _ptr, _ptr, _int, _ll, _int, _ll, _ll, _int, _ptr],
+    "dequant_accumulate": [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _ll, _ll, _int, _int,
+                           _int, _ptr],
     "gather_mix_int8": [_ptr, _ptr, _ptr, _ptr, _int, _ll, _int, _ll, _ll, _int, _ptr],
 }
 
@@ -179,6 +181,66 @@ def dequantize_block(q: torch.Tensor, scales: torch.Tensor, *, block: int = 128,
     return out
 
 
+def dequant_accumulate(acc: Optional[torch.Tensor], q: torch.Tensor,
+                       scales: torch.Tensor, w: torch.Tensor, *, block: int = 128,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8-block receive fold ``acc + w[:, None]·dequant(q, scales)``
+    over (B, N) rows, in one pass: q (B, Nq) int8, scales (B, Nq / block)
+    bf16, w (B,).  With ``acc`` (B, N), N ≤ Nq, f32 or bf16, the result
+    has acc's width and dtype (the wire's block padding is dropped); with
+    ``acc=None`` it is the init form ``w[:, None]·dequant(q, scales)``,
+    (B, Nq) f32.
+
+    ``out`` is a caller-given buffer of the result's shape, dtype and
+    device (allocated when None); it may be ``acc``, so a receive folds
+    in place and needs no (B, N) temporary.  Raises ``ValueError`` for q
+    and scales that do not agree with ``block``, an acc wider than the
+    wire, mixed devices or a bad ``out``, and, on the card, for a block
+    the kernel does not serve, other dtypes, non-contiguous operands or
+    B above 65535."""
+    if q.dim() != 2:
+        raise ValueError(f"dequant_accumulate takes (B, Nq) rows, got q of shape "
+                         f"{tuple(q.shape)}")
+    B, Nq = q.shape
+    if Nq % block or tuple(scales.shape) != (B, Nq // block):
+        raise ValueError(f"q {tuple(q.shape)} / scales {tuple(scales.shape)} do "
+                         f"not agree with block {block}")
+    if tuple(w.shape) != (B,):
+        raise ValueError(f"w must be ({B},), got {tuple(w.shape)}")
+    if acc is not None and (acc.dim() != 2 or acc.shape[0] != B):
+        raise ValueError(f"acc must be ({B}, N), got {tuple(acc.shape)}")
+    N = Nq if acc is None else acc.shape[1]
+    if not 1 <= N <= Nq:
+        raise ValueError(f"acc width {N} exceeds wire width {Nq}")
+    for name, t in (("scales", scales), ("w", w), ("acc", acc)):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+    dtype = torch.float32 if acc is None else acc.dtype
+    _check_out("out", out, (B, N), dtype, q.device)
+    if q.device.type == "cpu":
+        res = dequant_accumulate_ref(acc, q, scales, w, block)
+        return res if out is None else out.copy_(res)
+    _check_cuda("dequant_accumulate", q, block)
+    if (q.dtype != torch.int8 or scales.dtype != torch.bfloat16
+            or dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"the CUDA dequant_accumulate takes int8 q, bf16 scales and "
+                         f"an f32 or bf16 acc, got {q.dtype}, {scales.dtype} and "
+                         f"{'no acc' if acc is None else acc.dtype}")
+    if B > 65535:
+        raise ValueError(f"the CUDA dequant_accumulate takes up to 65535 rows, got {B}")
+    if out is None:
+        out = torch.empty((B, N), dtype=dtype, device=q.device)
+    if not all(t.is_contiguous() for t in (q, scales, out)
+               + (() if acc is None else (acc,))):
+        raise ValueError("dequant_accumulate needs contiguous acc, q, scales and out")
+    wf = w.to(torch.float32).contiguous()
+    _launch("dequant_accumulate", q.device, None if acc is None else acc.data_ptr(),
+            q.data_ptr(), scales.data_ptr(), wf.data_ptr(), out.data_ptr(), B, N, Nq,
+            block, int(dtype == torch.bfloat16))
+    dequant_accumulate.launches += 1
+    return out
+
+
 def gather_mix_int8(q: torch.Tensor, scales: torch.Tensor, srcs,
                     weights: torch.Tensor, *, block: int = 128,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -228,4 +290,5 @@ def gather_mix_int8(q: torch.Tensor, scales: torch.Tensor, srcs,
 
 quantize_block.launches = 0
 dequantize_block.launches = 0
+dequant_accumulate.launches = 0
 gather_mix_int8.launches = 0

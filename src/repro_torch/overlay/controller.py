@@ -1,10 +1,8 @@
 """The live overlay controller: NDMP deltas → rebuilt, hot-swapped mixers.
 
-The port of ``repro/overlay/controller.py`` with the global mixer kind
-only (the shard_map factory, ``controller.py:130``, waits for ROADMAP.md
-Queue 1 item 10; the bounded-repair policy and the multi-process swap
-barrier of ``repro.faults`` wait for item 6).  Between training rounds
-the controller
+The port of ``repro/overlay/controller.py`` (the bounded-repair policy of
+``repro.faults`` waits for ROADMAP.md Queue 1 item 6).  Between training
+rounds the controller
 
 1. advances the discrete-event NDMP simulator (and applies any scheduled
    churn events),
@@ -18,10 +16,24 @@ the controller
    :func:`repro_torch.dist.sync.global_mixer`; the cache keeps the
    reference's hit/miss accounting and its per-device constant tables.
 
-In capacity mode (``capacity=C``, the slot runtime) the controller owns
-a :class:`~repro_torch.runtime.slots.SlotMap`, pads every schedule to C
-slots (dead slots self-loop with weight 1) and builds mask-aware mixers
-``(params, mask) -> params``, so the data-plane shapes never change.
+Two mixer kinds, matching the two mixer families of
+:mod:`repro_torch.dist.sync`:
+
+* ``"global"`` (default) — :func:`~repro_torch.dist.sync.global_mixer`,
+  a ``params -> params`` mixer over the leading client axis of one
+  resident population;
+* ``"shard_map"`` (the reference's name, kept) — the per-rank
+  :func:`~repro_torch.dist.sync.make_mixer` over a ``torch.distributed``
+  process group (``group``), each rank holding ``clients_per_device = G``
+  clients (client slot i on rank i // G).  A swap of the per-rank mixer
+  must go live on every rank at the same round boundary:
+  ``swap_barrier`` is called before a staged swap goes live.
+
+In capacity mode (``capacity=C``, the slot runtime, global kind) the
+controller owns a :class:`~repro_torch.runtime.slots.SlotMap`, pads every
+schedule to C slots (dead slots self-loop with weight 1) and builds
+mask-aware mixers ``(params, mask) -> params``, so the data-plane shapes
+never change.
 """
 
 from __future__ import annotations
@@ -37,6 +49,8 @@ from ..core.ndmp import SimulatorProtocol
 from ..obs.events import get_telemetry
 from ..runtime.slots import SlotMap
 from .events import ChurnEvent, ChurnTrace, DeltaTracker, TableDelta
+
+MIXER_KINDS = ("global", "shard_map")
 
 
 class MixerCache:
@@ -89,6 +103,18 @@ def _global_mixer_factory(strategy: str = "fedlay", masked: bool = False,
     return build
 
 
+def _shard_map_mixer_factory(group, strategy: str = "fedlay",
+                             clients_per_device: int = 1,
+                             fuse: Optional[str] = None, codec=None):
+    from ..dist.sync import make_mixer
+
+    def build(sched: PermuteSchedule) -> Callable:
+        return make_mixer(strategy, sched, group, sched.num_clients,
+                          clients_per_device=clients_per_device, fuse=fuse,
+                          codec=codec)
+    return build
+
+
 @dataclasses.dataclass(frozen=True)
 class _StagedSwap:
     """A fully built (but not yet live) data-plane state, waiting for
@@ -125,6 +151,17 @@ class OverlayController:
     uniform MEP profiles (the reference's default; its ``profiles_fn``
     has no caller in the port yet).
 
+    ``mixer_kind`` picks the mixer family (module docstring).  The
+    ``"shard_map"`` kind builds :func:`repro_torch.dist.sync.make_mixer`
+    over ``group`` (None: the default process group) with
+    ``clients_per_device`` (G) clients a rank; capacity mode needs the
+    global kind (or a ``mixer_factory``), and a capacity must be a
+    multiple of G.  ``swap_barrier`` is called in :meth:`commit` before a
+    staged swap goes live (every rank must flip mixers at the same round
+    boundary); if it raises, the swap stays staged for the next boundary,
+    the live mixer keeps serving, and ``swap_barrier_aborts`` and the
+    ``faults.swap_barrier_aborts`` counter go up.
+
     ``capacity`` switches on fixed-capacity slot mode (above).
     ``double_buffered`` defers the swap to the round boundary: ``step()``
     stages the rebuilt schedule, mixer and slot remap plan, and
@@ -140,31 +177,59 @@ class OverlayController:
     """
 
     def __init__(self, sim: SimulatorProtocol, *,
+                 mixer_kind: str = "global",
                  strategy: str = "fedlay",
+                 group=None,
                  mixer_factory: Optional[
                      Callable[[PermuteSchedule], Callable]] = None,
                  capacity: Optional[int] = None,
                  double_buffered: bool = False,
+                 clients_per_device: int = 1,
                  fuse: Optional[str] = None,
                  codec=None,
-                 flat_io: bool = False):
+                 flat_io: bool = False,
+                 swap_barrier: Optional[Callable[[], None]] = None):
         from ..dist.sync import resolve_wire
+        if mixer_kind not in MIXER_KINDS:
+            raise ValueError(f"unknown mixer kind {mixer_kind!r}; "
+                             f"choose from {MIXER_KINDS}")
         self.sim = sim
         self.tracker = DeltaTracker(sim)
         self.strategy = strategy
         self.capacity = capacity
         self.double_buffered = double_buffered
+        if clients_per_device < 1:
+            raise ValueError("clients_per_device must be >= 1")
+        if capacity is not None and capacity % clients_per_device:
+            raise ValueError(
+                f"capacity {capacity} is not a multiple of "
+                f"clients_per_device {clients_per_device}")
         self.codec, self.fuse = resolve_wire(codec, fuse)
         self.flat_io = bool(flat_io)
-        if self.flat_io and self.fuse != "flat":
-            raise ValueError("flat_io mixers need the flat fuse mode "
-                             "(fuse='flat')")
-        self.slots = SlotMap(capacity) if capacity is not None else None
+        if self.flat_io and (mixer_kind != "global" or self.fuse != "flat"):
+            raise ValueError(
+                "flat_io mixers need mixer_kind='global' and the flat "
+                "fuse mode (fuse='flat' or a codec)")
+        self.clients_per_device = clients_per_device
+        self.slots = None
+        if capacity is not None:
+            if mixer_kind != "global" and mixer_factory is None:
+                raise ValueError(
+                    "capacity mode builds mask-aware global mixers; "
+                    "use mixer_kind='global' or pass a mixer_factory")
+            self.slots = SlotMap(capacity)
         if mixer_factory is None:
-            mixer_factory = _global_mixer_factory(
+            mixer_factory = (_global_mixer_factory(
                 strategy, masked=capacity is not None, fuse=self.fuse,
                 codec=self.codec, flat_io=self.flat_io)
+                if mixer_kind == "global"
+                else _shard_map_mixer_factory(group, strategy,
+                                              clients_per_device,
+                                              fuse=self.fuse,
+                                              codec=self.codec))
         self.cache = MixerCache(mixer_factory)
+        self.swap_barrier = swap_barrier
+        self.swap_barrier_aborts = 0
         self.rebuilds = 0
         self.swaps = 0
         self.last_commit_ms = 0.0
@@ -262,8 +327,18 @@ class OverlayController:
         :class:`~repro_torch.runtime.slots.RemapPlan` of the most recent
         applied membership change (None when membership is unchanged or
         outside capacity mode).  :attr:`last_commit_ms` afterwards holds
-        the host time the swap took."""
+        the host time the swap took (0 when nothing went live)."""
         if self._staged is not None:
+            if self.swap_barrier is not None:
+                try:
+                    self.swap_barrier()
+                except Exception:
+                    # a peer missed the boundary: keep serving the live
+                    # mixer, leave the swap staged for the next commit
+                    self.swap_barrier_aborts += 1
+                    get_telemetry().count("faults.swap_barrier_aborts")
+                    self.last_commit_ms = 0.0
+                    return self.last_plan
             staged, self._staged = self._staged, None
             t0 = _time.perf_counter()
             self._apply(staged)

@@ -3,10 +3,11 @@
 The port of ``repro/wire/codec.py``.  A :class:`WireCodec` maps the
 (B, N) f32 row buffer of :class:`repro_torch.dist.flat.FlatSpec` to the
 tuple of tensors that would cross the network (``encode``), back
-(``decode``), and prices it (``wire_bytes``);
-:func:`repro_torch.dist.sync.global_mixer` threads a codec through the
-flat round, whose neighbour term mixes the *encoded* population through
-the codec's :meth:`WireCodec.gather`.
+(``decode``), and prices it (``wire_bytes``).  Two receives fold the
+*encoded* rows: :func:`repro_torch.dist.sync.global_mixer` mixes the
+encoded population through :meth:`WireCodec.gather`, and the per-rank
+:func:`repro_torch.dist.sync.fedlay_mix` folds each slot's received rows
+into its accumulator through :meth:`WireCodec.accumulate`.
 
 **The wire-format contract** (the reference's, unchanged):
 
@@ -35,10 +36,11 @@ name           bytes/N  EF   exactness
 =============  =======  ===  ==========================================
 
 The block codecs run the kernels of :mod:`repro_torch.kernels.wire_codec`:
-``quantize_block`` encodes (with the residual in the same pass),
-int8-block's receive is ``gather_mix_int8``, which dequantizes in
-registers, and int4-block's is ``dequantize_block`` then ``gather_mix``
-(the reference's generic decode-then-mix route, ``codec.py:150-156``).
+``quantize_block`` encodes (with the residual in the same pass);
+int8-block's receives are ``gather_mix_int8`` and ``dequant_accumulate``,
+which dequantize in registers; int4-block's are ``dequantize_block`` then
+``gather_mix`` or ``mix_accumulate`` (the reference's generic
+decode-then-mix routes, ``codec.py:141-156``).
 Its nibble packing is tensor byte work on ``quantize_block``'s output,
 as in the reference.  topk ranks with ``torch.topk`` (the reference's
 ``jax.lax.top_k`` is no Pallas kernel).
@@ -64,8 +66,8 @@ import torch
 
 from ..kernels.gather_mix import gather_mix
 from ..kernels.mix_accumulate import mix_accumulate
-from ..kernels.wire_codec import (dequantize_block, gather_mix_int8, padded_width,
-                                  quantize_block)
+from ..kernels.wire_codec import (dequant_accumulate, dequantize_block, gather_mix_int8,
+                                  padded_width, quantize_block)
 
 Wire = Tuple[torch.Tensor, ...]
 Workspace = Dict[str, torch.Tensor]
@@ -135,12 +137,12 @@ class WireCodec:
         return wire, res if residual_out is None else residual_out.copy_(res)
 
     # ---- receive hooks ---------------------------------------------------
-    def accumulate(self, acc: torch.Tensor, wire: Wire,
-                   w: torch.Tensor) -> torch.Tensor:
-        """``acc + w[:, None]·decode(wire)``, the shard_map path's receive
-        (ROADMAP.md Queue 1 item 10): one decoded buffer, then
-        ``mix_accumulate``."""
-        return mix_accumulate(acc, self.decode(wire, acc.shape[1]), w)
+    def accumulate(self, acc: torch.Tensor, wire: Wire, w: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``acc + w[:, None]·decode(wire)``, the per-rank mixer's receive
+        fold, written into ``out`` when given (which may be ``acc``): the
+        generic form decodes into one buffer, then ``mix_accumulate``."""
+        return mix_accumulate(acc, self.decode(wire, acc.shape[1]), w, out=out)
 
     def gather(self, wire: Wire, srcs, weights: torch.Tensor, n: int,
                out: Optional[torch.Tensor] = None,
@@ -207,7 +209,8 @@ class Int8BlockCodec(WireCodec):
     """Symmetric per-block int8 quantization (about 4× less wire): one
     bf16 scale s = max|block| / 127 per ``block`` columns and
     q = round(x / s) in [-127, 127], through ``quantize_block``; the
-    receive dequantizes inside ``gather_mix_int8``.  Error feedback
+    receives dequantize inside ``gather_mix_int8`` (the global round) and
+    ``dequant_accumulate`` (the per-rank fold).  Error feedback
     compensates the ≤ s/2 rounding."""
 
     block: int = 128
@@ -251,10 +254,9 @@ class Int8BlockCodec(WireCodec):
     def tolerance(self, buf):
         return _block_amax_bound(buf, self.block, self.levels)
 
-    def accumulate(self, acc, wire, w):
-        raise NotImplementedError(
-            "int8-block's fused receive is dequant_accumulate, which is not "
-            "ported yet (ROADMAP.md Queue 1 item 10)")
+    def accumulate(self, acc, wire, w, out=None):
+        q, s = wire
+        return dequant_accumulate(acc, q, s, w, block=self.block, out=out)
 
     def gather(self, wire, srcs, weights, n, out=None, ws=None):
         q, s = wire

@@ -345,18 +345,16 @@ def test_gather_mix_int8_matches_plain(cuda, C, N, block):
                                                (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("N", [1, 1001, 4096, 3 * 2 ** 16 + 5])
 def test_mix_accumulate_matches_plain(cuda, acc_dtype, x_dtype, N):
-    """The init form bit for bit; the accumulate form within one spacing
-    of its dtype (one fused multiply-add against a float64 sum rounded
-    once); in place into acc and into x with the same bits."""
+    """Both forms bit for bit (the kernel's fused multiply-add and the
+    plain version's exact sum both round once to f32); in place into acc
+    and into x with the same bits."""
     from repro_torch.kernels.mix_accumulate import mix_accumulate
     from repro_torch.kernels.ref import mix_accumulate_ref
     gen = torch.Generator(device=cuda).manual_seed(N)
     acc, x = _rand(gen, 6, N, dtype=acc_dtype), _rand(gen, 6, N, dtype=x_dtype)
     w = torch.rand((6,), generator=gen, device=cuda)
     out, ref = mix_accumulate(acc, x, w), mix_accumulate_ref(acc, x, w)
-    step = torch.ldexp(torch.full_like(ref.float(), torch.finfo(acc_dtype).eps),
-                       torch.frexp(ref.float()).exponent - 1)
-    assert bool(((out.float() - ref.float()).abs() <= step).all())
+    assert torch.equal(_bits(out), _bits(ref))
     a = acc.clone()
     assert torch.equal(_bits(mix_accumulate(a, x, w, out=a)), _bits(out))
     if acc_dtype == x_dtype:
@@ -500,3 +498,157 @@ def test_codec_slot_loop_card_matches_cpu(cuda, codec):
         differ = ((qc != qg)
                   | (sc != sg).repeat_interleave(128, dim=1))[torch.from_numpy(mc > 0)]
         assert int(differ.sum()) <= 1e-3 * differ.numel()
+
+
+# --------------------------------------------------------------------------
+# dequant_accumulate and the per-rank mixer
+# --------------------------------------------------------------------------
+
+DEQ_SHAPES = [(1, 1), (3, 1000), (4, 4133), (8, 4096), (5, 3 * 128 * 64 + 1),
+              (3000, 256), (65535, 32)]
+
+
+@pytest.mark.parametrize("block", [128, 64, 32])
+@pytest.mark.parametrize("B,N", DEQ_SHAPES)
+def test_dequant_accumulate_matches_plain_bit_for_bit(cuda, block, B, N):
+    """f32 and bf16 acc of N columns against the wire's NB·block (ragged
+    and whole), in place into acc, an acc off the 16-byte grid, and the
+    init form over the full wire width: bit for bit with the plain
+    version, which rounds the sum once as the kernel's fmaf does (scales
+    include subnormal ones where N allows)."""
+    from repro_torch.kernels.ref import dequant_accumulate_ref
+    from repro_torch.kernels.wire_codec import dequant_accumulate, quantize_block
+    gen = torch.Generator(device=cuda).manual_seed(B * 7 + N + block)
+    q, s = quantize_block(_wire_rows(gen, B, N, 127, block), block=block)
+    w = torch.rand((B,), generator=gen, device=cuda)
+    before = dequant_accumulate.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        acc = _rand(gen, B, N, dtype=dtype)
+        out = dequant_accumulate(acc, q, s, w, block=block)
+        ref = dequant_accumulate_ref(acc, q, s, w, block)
+        assert out.dtype == dtype and torch.equal(_bits(out), _bits(ref))
+        a = acc.clone()
+        assert dequant_accumulate(a, q, s, w, block=block, out=a) is a
+        assert torch.equal(_bits(a), _bits(ref))
+        off = torch.empty(B * N + 1, dtype=dtype, device=cuda)[1:].view(B, N)
+        off.copy_(acc)
+        assert torch.equal(_bits(dequant_accumulate(off, q, s, w, block=block)),
+                           _bits(ref))
+    init = dequant_accumulate(None, q, s, w, block=block)
+    torch.cuda.synchronize()
+    assert init.shape == q.shape and init.dtype == torch.float32
+    assert torch.equal(_bits(init), _bits(dequant_accumulate_ref(None, q, s, w, block)))
+    assert dequant_accumulate.launches == before + 7
+
+
+def test_dequant_accumulate_rounds_once_on_the_card(cuda):
+    """The sum whose float64 rounding lands on an f32 midpoint
+    (tests/test_torch_wire.py): the kernel's fmaf and the plain version
+    both give 2^31 + 256."""
+    from repro_torch.kernels.ref import dequant_accumulate_ref
+    from repro_torch.kernels.wire_codec import dequant_accumulate
+    q = torch.zeros((1, 128), dtype=torch.int8, device=cuda)
+    q[0, 0] = 65
+    s = torch.full((1, 1), 149 * 2.0 ** -7, device=cuda).bfloat16()
+    w = torch.tensor([14190909 * 2.0 ** -23], device=cuda)
+    acc = torch.full((1, 128), 2.0 ** 31, device=cuda)
+    got = dequant_accumulate(acc, q, s, w)
+    assert float(got[0, 0]) == float(dequant_accumulate_ref(acc, q, s, w)[0, 0]) \
+        == 2.0 ** 31 + 256
+
+
+def test_dequant_accumulate_rejects_bad_layouts(cuda):
+    from repro_torch.kernels.wire_codec import dequant_accumulate
+    q = torch.zeros((4, 256), dtype=torch.int8, device=cuda)
+    s = torch.zeros((4, 2), dtype=torch.bfloat16, device=cuda)
+    w = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="block"):
+        dequant_accumulate(None, torch.zeros((4, 256 * 3), dtype=torch.int8, device=cuda),
+                           torch.zeros((4, 8), dtype=torch.bfloat16, device=cuda), w,
+                           block=96)
+    with pytest.raises(ValueError, match="int8 q"):
+        dequant_accumulate(None, q.int(), s, w)
+    with pytest.raises(ValueError, match="int8 q"):
+        dequant_accumulate(torch.zeros((4, 256), dtype=torch.half, device=cuda), q, s, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        dequant_accumulate(torch.zeros((256, 4), device=cuda).t(), q, s, w)
+    with pytest.raises(ValueError, match="65535"):
+        dequant_accumulate(None, torch.zeros((65536, 32), dtype=torch.int8, device=cuda),
+                           torch.zeros((65536, 1), dtype=torch.bfloat16, device=cuda),
+                           torch.ones(65536, device=cuda), block=32)
+    with pytest.raises(ValueError, match="lies on"):
+        dequant_accumulate(None, q, s.cpu(), w)
+    with pytest.raises(ValueError, match="exceeds wire width"):
+        dequant_accumulate(torch.zeros((4, 257), device=cuda), q, s, w)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group on the card, left at the module's end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL runs on the card")
+    import socket
+    from repro_torch.launch.mesh import make_client_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mesh = make_client_mesh(0, 1, f"tcp://127.0.0.1:{port}", device="cuda",
+                            timeout_s=120)
+    yield mesh
+    mesh.close()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("codec", [None, "none", "bf16", "int8-block", "int4-block", "topk"])
+def test_per_rank_round_card_matches_cpu(cuda, nccl_mesh, codec, masked):
+    """One per-rank fedlay round of 8 clients on a one-rank NCCL group (all
+    edges are intra-rank takes) on the card against the same round on the
+    CPU: the output within 1e-6 x max|X| (the mask's weights are f32
+    sums and quotients on two devices), the residual bit for bit (the same
+    quantization, or the same top-k set), masked-out rows kept; with
+    int8-block each of the 2L = 4 slots folds through one
+    dequant_accumulate launch, after one quantize_block and one
+    self-term mix_accumulate."""
+    from repro_torch.core.mixing import build_permute_schedule
+    from repro_torch.dist.sync import fedlay_mix, make_mixer
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.wire_codec import dequant_accumulate, quantize_block
+    from repro_torch.wire.codec import get_codec
+    rng = np.random.default_rng(len(str(codec)) + masked)
+    C, sched = 8, build_permute_schedule(8, 2)
+    X = {"a": rng.normal(size=(C, 37, 11)).astype(np.float32),
+         "b": rng.normal(size=(C, 3000)).astype(np.float32)}
+    ef = codec is not None and get_codec(codec).error_feedback
+    N = 512 + 3072
+    R = (rng.normal(size=(C, N)) * 0.01).astype(np.float32)
+    mask = np.ones(C, np.float32)
+    mask[[2, 5]] = 0.0
+    runs = []
+    for device in ("cpu", cuda):
+        tree = {k: torch.from_numpy(v).to(device) for k, v in X.items()}
+        res = torch.from_numpy(R.copy()).to(device)
+        counts = [k.launches for k in (dequant_accumulate, quantize_block, mix_accumulate)]
+        if masked:
+            got = fedlay_mix(tree, sched, sched.weights, sched.self_weight,
+                             nccl_mesh.group, mask=mask, fuse="flat", codec=codec,
+                             residual=res if ef else None)
+        else:
+            mixer = make_mixer("fedlay", sched, nccl_mesh.group, C, clients_per_device=C,
+                               fuse="flat", codec=codec)
+            got = mixer(tree, sched.weights, sched.self_weight, *((res,) if ef else ()))
+        got, res = got if ef else (got, None)
+        torch.cuda.synchronize()
+        counts = [k.launches - c for k, c in
+                  zip((dequant_accumulate, quantize_block, mix_accumulate), counts)]
+        runs.append(({k: v.cpu() for k, v in got.items()},
+                     None if res is None else res.cpu(), counts))
+    (cpu, cpu_res, _), (gpu, gpu_res, counts) = runs
+    scale = max(np.abs(v).max() for v in X.values())
+    for k in X:
+        torch.testing.assert_close(gpu[k], cpu[k], rtol=0.0, atol=1e-6 * scale)
+        if masked:
+            assert torch.equal(gpu[k][mask == 0], torch.from_numpy(X[k][mask == 0]))
+    if ef:
+        assert torch.equal(_bits(gpu_res), _bits(cpu_res))
+    if codec == "int8-block":
+        assert counts == [4, 1, 1]

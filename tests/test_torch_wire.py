@@ -1,8 +1,9 @@
 """The port's wire codecs against the JAX reference on the CPU: the
 kernels' plain paths (``quantize_block``, ``dequantize_block``,
-``gather_mix_int8``, ``mix_accumulate``) against the Pallas kernels in
-interpret mode, every codec against its reference, the codec round of
-``global_mixer``, and ``SlotTrainLoop`` under int8-block and int4-block.
+``dequant_accumulate``, ``gather_mix_int8``, ``mix_accumulate``) against
+the Pallas kernels in interpret mode, every codec against its reference,
+the codec round of ``global_mixer``, and ``SlotTrainLoop`` under
+int8-block and int4-block.
 Same numpy inputs on both sides; each tolerance is stated where it is
 used."""
 
@@ -31,8 +32,10 @@ from repro_torch.core.mixing import build_permute_schedule
 from repro_torch.core.ndmp import Simulator
 from repro_torch.dist.sync import global_mixer, sync_bytes_per_client
 from repro_torch.kernels.mix_accumulate import mix_accumulate
-from repro_torch.kernels.wire_codec import (dequantize_block, gather_mix_int8,
-                                            padded_width, quantize_block)
+from repro_torch.kernels.ref import mix_accumulate_ref
+from repro_torch.kernels.wire_codec import (dequant_accumulate, dequantize_block,
+                                            gather_mix_int8, padded_width,
+                                            quantize_block)
 from repro_torch.launch.steps import dfl_local_step
 from repro_torch.models.convert import tree_from_numpy
 from repro_torch.obs.rounds import RoundLedger
@@ -167,11 +170,10 @@ def test_quantize_block_subnormal_scales_follow_ieee():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("form", ["accumulate", "init"])
 def test_mix_accumulate_matches_jax(dtype, form):
-    """Both forms, bit-equal to JAX on these inputs: XLA contracts the
-    reference's acc + x·w into one fused multiply-add, and the plain
-    version rounds once from float64 (one f32 spacing off only where the
-    float64 sum falls exactly between two f32 values).  The result lands
-    in acc or in x, in place, with the same bits."""
+    """Both forms, bit-equal to JAX: XLA contracts the reference's
+    acc + x·w into one fused multiply-add, and the plain version rounds
+    the exact sum once to f32 as well.  The result lands in acc or in x,
+    in place, with the same bits."""
     rng = np.random.default_rng(3)
     acc, x = _rows(5, 1500, 1), rng.normal(size=(5, 1500)).astype(np.float32)
     w = rng.random(5).astype(np.float32)
@@ -218,6 +220,71 @@ def test_gather_mix_int8_matches_jax(C, block):
     np.testing.assert_array_equal(out.numpy(), got[:, :N].numpy())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [128, 64, 32])
+def test_dequant_accumulate_matches_jax(block, dtype):
+    """The fused receive fold against the Pallas kernel in interpret mode,
+    bit for bit: the accumulate form into an acc of N columns, ragged
+    (1000) or whole (1024) against the wire's NB·block, in acc's dtype and
+    in place; the init form over the full wire width in f32.  XLA
+    contracts the reference's acc + w·(q·s) into one fused multiply-add,
+    and the plain version rounds the sum once as well."""
+    rng = np.random.default_rng(block)
+    x = _special_rows(1024, block, 127, seed=block)
+    q, s = quantize_block(torch.from_numpy(x), block=block)
+    w = rng.random(3).astype(np.float32)
+    jq, js = jnp.asarray(q.numpy()), jnp.asarray(s.float().numpy()).astype(jnp.bfloat16)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    for N in (1000, 1024):
+        acc = _rows(3, N, N).astype(np.float32)
+        want = _f32(jwc.dequant_accumulate(jnp.asarray(acc).astype(jd), jq, js,
+                                           jnp.asarray(w), block=block,
+                                           interpret=True).astype(jnp.float32))
+        tacc = torch.from_numpy(acc).to(td)
+        got = dequant_accumulate(tacc, q, s, torch.from_numpy(w), block=block)
+        assert got.dtype == td and got.shape == (3, N)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        target = tacc.clone()
+        assert dequant_accumulate(target, q, s, torch.from_numpy(w), block=block,
+                                  out=target) is target
+        assert torch.equal(target, got)
+    init = dequant_accumulate(None, q, s, torch.from_numpy(w), block=block)
+    want = jwc.dequant_accumulate(None, jq, js, jnp.asarray(w), block=block,
+                                  interpret=True)
+    assert init.dtype == torch.float32 and init.shape == (3, 1024)
+    np.testing.assert_array_equal(init.numpy(), np.asarray(want))
+
+
+def test_dequant_accumulate_rounds_once_where_double_rounding_would_not():
+    """acc = 2^31, w·(q·s) = 128·(1 + 193·2^-37): the exact sum lies just
+    above the midpoint between 2^31 and its next f32 value.  Rounded
+    first to float64 the sum would land on the midpoint and then round
+    to even, 2^31; rounded once it is 2^31 + 256, as XLA's fused
+    multiply-add, the CUDA fmaf, dequant_accumulate_ref and
+    mix_accumulate_ref (on the decoded row, as the generic receive
+    folds it) give."""
+    w = np.float32(14190909 * 2.0 ** -23)
+    s = np.full((1, 1), 149 * 2.0 ** -7, np.float32)
+    q = np.zeros((1, 128), np.int8)
+    q[0, 0] = 65
+    acc = np.full((1, 128), 2.0 ** 31, np.float32)
+    got = dequant_accumulate(torch.from_numpy(acc), torch.from_numpy(q),
+                             torch.from_numpy(s).to(torch.bfloat16), torch.tensor([w]))
+    want = jwc.dequant_accumulate(jnp.asarray(acc), jnp.asarray(q),
+                                  jnp.asarray(s).astype(jnp.bfloat16), jnp.asarray([w]),
+                                  interpret=True)
+    assert float(got[0, 0]) == float(want[0, 0]) == 2.0 ** 31 + 256
+    x = np.zeros((1, 128), np.float32)
+    x[0, 0] = 65 * s[0, 0]
+    once = mix_accumulate_ref(torch.from_numpy(acc), torch.from_numpy(x),
+                              torch.tensor([w]))
+    jonce = j_mix_accumulate(jnp.asarray(acc), jnp.asarray(x), jnp.asarray([w]),
+                             interpret=True)
+    assert float(once[0, 0]) == float(jonce[0, 0]) == 2.0 ** 31 + 256
+    assert float(np.float32(np.float64(acc[0, 0]) + np.float64(x[0, 0]) * np.float64(w))) \
+        == 2.0 ** 31
+
+
 def test_kernel_wrappers_reject_bad_shapes():
     q, s = quantize_block(torch.ones((2, 100)), block=32)
     with pytest.raises(ValueError, match="do not agree"):
@@ -231,6 +298,15 @@ def test_kernel_wrappers_reject_bad_shapes():
         dequantize_block(q, s, block=32, out=torch.empty((2, 200)))
     with pytest.raises(ValueError, match="w must be"):
         mix_accumulate(None, torch.ones((2, 3)), torch.ones(3))
+    with pytest.raises(ValueError, match="exceeds wire width"):
+        dequant_accumulate(torch.ones((2, 129)), q, s, torch.ones(2), block=32)
+    with pytest.raises(ValueError, match="do not agree"):
+        dequant_accumulate(None, q, s, torch.ones(2), block=64)
+    with pytest.raises(ValueError, match="w must be"):
+        dequant_accumulate(None, q, s, torch.ones(3), block=32)
+    with pytest.raises(ValueError, match="out must be"):
+        dequant_accumulate(torch.ones((2, 100)), q, s, torch.ones(2), block=32,
+                           out=torch.empty((2, 100), dtype=torch.bfloat16))
 
 
 # --------------------------------------------------------------------------
@@ -334,8 +410,9 @@ def test_block_codecs_serve_other_blocks():
 def test_codec_registry_and_accumulate():
     """The registry resolves names, instances and None as the reference's
     does; the generic accumulate receive matches the reference's (bf16,
-    one rounding of acc + w·x); int8-block's fused receive waits for
-    dequant_accumulate."""
+    one rounding of acc + w·x); int8-block's fused receive,
+    dequant_accumulate, matches the reference's bit for bit and folds in
+    place into acc through ``out``."""
     assert get_codec(None) is None and get_codec("int8-block") is WIRE_CODECS["int8-block"]
     assert get_codec(Int8BlockCodec(block=64)) == Int8BlockCodec(block=64)
     with pytest.raises(ValueError, match="codec"):
@@ -350,8 +427,15 @@ def test_codec_registry_and_accumulate():
     want = jcodec.accumulate(jnp.asarray(acc), jcodec.encode(jnp.asarray(x)),
                              jnp.asarray(w))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_codec("int8-block").accumulate(torch.from_numpy(acc), (), torch.from_numpy(w))
+    codec, jcodec = get_codec("int8-block"), j_get_codec("int8-block")
+    wire = codec.encode(torch.from_numpy(x))
+    jwire = (jnp.asarray(wire[0].numpy()),
+             jnp.asarray(wire[1].float().numpy()).astype(jnp.bfloat16))
+    target = torch.from_numpy(acc.copy())
+    got = codec.accumulate(target, wire, torch.from_numpy(w), out=target)
+    want = jcodec.accumulate(jnp.asarray(acc), jwire, jnp.asarray(w))
+    assert got is target
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # --------------------------------------------------------------------------
