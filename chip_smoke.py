@@ -10,8 +10,8 @@ Phases, each printing its lines:
 1. environment: torch and CUDA versions, TF32 settings, the card;
 2. build: every kernel of the port (``flash_decode``, ``gather_mix``,
    ``mix_accumulate``, ``quantize_block``, ``dequantize_block``,
-   ``dequant_accumulate``, ``gather_mix_int8``), one ``nvcc`` per
-   source, all started together, timed; then the one-rank NCCL client
+   ``dequant_accumulate``, ``gather_mix_int8``, ``ssd_scan``), one
+   ``nvcc`` per source, all started together, timed; then the one-rank NCCL client
    group (``repro_torch.launch.mesh``) on a free localhost port;
 3. kernels: each kernel against its plain PyTorch version on the card:
    ``flash_decode`` at the CPU tests' shapes and at the ``decode_32k``
@@ -24,6 +24,8 @@ Phases, each printing its lines:
    forms bit for bit, f32 and bf16, in place into acc and into x;
    ``dequant_accumulate`` bit for bit (f32 and bf16 acc, ragged N, the
    init form, blocks 128, 64 and 32, B from 1 to 65535, in place);
+   ``ssd_scan``, y and the final state, f32 and bf16, S a multiple of
+   256 and S that makes the chunk halve, B 1-4, H 1-32, P and N 32-128;
 4. small: the ``tiny_lm`` ``ServeLoop`` on the card against the same on
    the CPU, token for token; the ``tiny_lm`` ``SlotTrainLoop`` with a
    fail and a join on the card against the same on the CPU (alive
@@ -37,12 +39,21 @@ Phases, each printing its lines:
    same with the plain attention, a breakdown of one decode tick and one
    prefill (host time against device busy time), and the kernel at the
    slice's shape;
-6. train: the DFL round, ``SlotTrainLoop`` over Llama-3.2-3B at full
+6. ssm: ``run_batch`` serving Mamba2-370m at full width and depth (48
+   layers, random f32 weights from a seeded generator), batch 4, prompt
+   32768 (``prefill_32k`` with its batch cut from 32), 64 generated:
+   prefill seconds and decode tok/s, ``ssd_scan`` launches (48 a
+   prefill), peak memory against its reckoning, one prefill with the
+   kernel against the same with the plain scan (logits and the decode
+   states), a breakdown of one prefill and one decode tick, and the
+   kernel alone at the slice's shape against its plain version and its
+   bound;
+7. train: the DFL round, ``SlotTrainLoop`` over Llama-3.2-3B at full
    width with its depth cut to what fits (8 slots, 7 live, a fail and a
    join, sgd, fedlay mixing through ``gather_mix``), with its checks,
    per-round times, a profiled round, and the kernel at the round's
    shape against its plain version and ``torch.matmul``;
-7. wire: the same round compressed, int8-block and then int4-block, at
+8. wire: the same round compressed, int8-block and then int4-block, at
    Llama-3.2-3B width with the depth cut to what fits beside the
    error-feedback residual and the wire, with its checks (launches per
    round, dead rows, joiner, residual reset and keep, ``data_ptr``,
@@ -50,7 +61,7 @@ Phases, each printing its lines:
    round's losses at the same depth beside the codec's, and each new
    kernel at the round's shape against its plain version and a PyTorch
    call;
-8. mesh: the per-rank mixer on a one-rank NCCL client group holding all
+9. mesh: the per-rank mixer on a one-rank NCCL client group holding all
    8 clients (``OverlayController(mixer_kind="shard_map")``, so every
    edge is an intra-rank take): a few DFL rounds of ``dfl_local_step``
    and the per-rank int8-block round with its residual at Llama-3.2-3B
@@ -60,7 +71,7 @@ Phases, each printing its lines:
    against ``gather_mix``, ``data_ptr``, peak memory), the codec-free
    per-rank round's losses beside, and ``dequant_accumulate`` at the
    round's shape against its plain version and two PyTorch calls;
-9. the ``kernels`` JSON line, the card's name and power limit, and the
+10. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result
@@ -428,6 +439,272 @@ def phase_slice(torch, F, card):
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"]}
+
+
+# --------------------------------------------------------------------------
+# Mamba2 serving: the SSD scan
+# --------------------------------------------------------------------------
+
+#: (B, S, H, P, N, chunk): S a multiple of 256 and S that makes Q halve
+#: (96, 7, 300 at chunk 16), B 1 to 4, H 1 to 32, P and N 32 to 128
+SSD_CASES = [(1, 256, 1, 64, 64, 256), (2, 512, 4, 64, 128, 256),
+             (1, 96, 3, 128, 64, 256), (4, 7, 32, 64, 128, 256),
+             (3, 768, 2, 128, 128, 256), (4, 1024, 32, 64, 128, 256),
+             (2, 300, 5, 32, 32, 16)]
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 32768, 64
+
+
+def ssd_inputs(torch, gen, B, S, H, P, N, dtype):
+    """The mixer's ranges: dt a softplus of N(0, 1), A = -(1..H) (the
+    init's -exp(A_log)), x, B and C N(0, 1)."""
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device="cuda"))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return randn(B, S, H, P), dt, A, randn(B, S, N), randn(B, S, N)
+
+
+def ssd_assert_close(torch, got, ref, dt, A, Q, head_dim):
+    """Hold ssd_scan's y (head_dim 2) or final state (head_dim 1) to its
+    plain version, head by head: |got - ref| <= rtol·|ref| + (base +
+    32·2^-24·cs_h)·max|ref_h|, with cs_h the largest |within-chunk cumsum
+    of dt·A_h|.  Both sides form each decay exp(cs_i - cs_j) from such a
+    cumsum, whose rounding shifts the exponent by a few 2^-24·|cs|: y and
+    the state carry a relative error of that size, large for heads with a
+    large |A| (|cs| reaches 6,000 at the slice's shape).  Against a
+    float64 evaluation on the CPU the plain version's own error read at
+    most 0.6·2^-24·cs_h·max|y_h|; the factor 32 leaves room for the
+    card's cumsum, exp and sums, which round elsewhere.  base: 1e-5 for
+    the f32 sums in another order; bf16 y adds 1e-2 (base and rtol) for
+    its one rounding to bf16.  Returns max |got - ref| / max |ref| and
+    the largest per-head |got - ref| / (2^-24·cs_h·max|ref_h|)."""
+    B, S, H = dt.shape
+    cs = (dt * A).reshape(B, S // Q, Q, H).sum(2).abs().amax(dim=(0, 1))
+    bf16 = got.dtype == torch.bfloat16
+    base, rtol = (1e-2, 1e-2) if bf16 else (1e-5, 0.0)
+    g, r = got.float().movedim(head_dim, 0), ref.float().movedim(head_dim, 0)
+    scale = r.abs().reshape(H, -1).amax(dim=1)
+    limit = (base + 32 * 2.0 ** -24 * cs) * scale
+    diff = (g - r).abs()
+    excess = (diff - rtol * r.abs()).reshape(H, -1).amax(dim=1) - limit
+    check(bool((excess <= 0).all()),
+          f"ssd_scan {'y' if head_dim == 2 else 'state'} off its plain version in "
+          f"heads {(excess > 0).nonzero().flatten().tolist()} by up to "
+          f"{excess.max().item():.3e} over the limit")
+    ratio = diff.reshape(H, -1).amax(dim=1) / (2.0 ** -24 * cs * scale).clamp_min(1e-30)
+    return (diff.max() / r.abs().max()).item(), ratio.max().item()
+
+
+def check_ssd_scan(torch):
+    """ssd_scan (y and the final state) against ssd_chunked_ref on the
+    card, f32 and bf16, over SSD_CASES, held to ssd_assert_close; a
+    failure raises.  Returns the worst relative errors."""
+    from repro_torch.kernels.ref import chunk_len, ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, P, N, chunk in SSD_CASES:
+            x, dt, A, Bm, Cm = ssd_inputs(torch, gen, B, S, H, P, N, dtype)
+            out = torch.full((B, H, P, N), float("nan"), device="cuda")
+            y = ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out)
+            ref, final = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+            torch.cuda.synchronize()
+            Q = chunk_len(S, chunk)
+            for what, a, b, hd in (("y", y, ref, 2), ("state", out, final, 1)):
+                key = f"{what} {str(dtype).split('.')[1]}"
+                err, ratio = ssd_assert_close(torch, a, b, dt, A, Q, hd)
+                e0, r0 = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(e0, err), max(r0, ratio))
+    print("kernels: ssd_scan against its plain version over "
+          f"{len(SSD_CASES)} shapes (B 1-4, H 1-32, P and N 32-128, Q 256, 96, "
+          "7, 4): max |err| / max|ref|, and the largest per-head |err| over "
+          "2^-24·cs_h·max|ref_h|: " + ", ".join(
+              f"{k} {e:.3e} ({r:.2f})" for k, (e, r) in worst.items())
+          + " (limits per head: f32 (1e-5 + 32·2^-24·cs_h)·max|ref_h|, bf16 y "
+          "1e-2·|ref| + (1e-2 + 32·2^-24·cs_h)·max|ref_h|)")
+    return worst
+
+
+def ssd_bound(B, S, H, P, N, Q, itemsize):
+    """Least time for the scan on these shapes: x, dt, A, B and C read
+    once, y and the final state written once, against the dual form's
+    f32 operations per (b, h, chunk): 2·N·Q(Q+1)/2 for the causal C·Bᵀ,
+    2·P·Q(Q+1)/2 for its product with dt·x, 2·Q·N·P for the inter-chunk
+    term and 2·Q·N·P for the state update."""
+    nbytes = (2 * B * S * H * P * itemsize + 4 * B * S * H + 4 * H
+              + 2 * B * S * N * itemsize + 4 * B * H * P * N)
+    tri = Q * (Q + 1) // 2
+    ops = B * H * (S // Q) * (2 * tri * (N + P) + 4 * Q * N * P)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), ops
+
+
+def ssm_reckoned(cfg, B, S) -> tuple:
+    """Device bytes a Mamba2 prefill of B x S tokens adds to the weights
+    at its peak, in the last step of a layer's mixer (the gate's rmsnorm):
+    the resident cache (state and conv tail of every layer), and that
+    layer's x and normed input (D each), the in_proj output (2·di + 2N +
+    H), the conv output (di + 2N), dt after softplus (H), y and the
+    rmsnorm's two temporaries (di each), f32 per token."""
+    s = cfg.ssm
+    D, di, n = cfg.d_model, s.d_inner(cfg.d_model), s.d_state
+    nh = s.nheads(D)
+    cache = cfg.num_layers * B * (nh * s.headdim * n + (s.d_conv - 1) * (di + 2 * n)) * 4
+    act = 4 * B * S * (2 * D + (2 * di + 2 * n + nh) + (di + 2 * n) + nh + 3 * di)
+    return cache, act
+
+
+def phase_ssm(torch, card):
+    """Mamba2-370m served by run_batch at full width and depth: launches,
+    memory, the kernel against the plain path end to end, a breakdown,
+    and the kernel alone at the slice's shape."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import ssd_scan as scan_mod
+    from repro_torch.kernels.ref import chunk_len, ssd_chunked_ref
+    from repro_torch.launch.serve import run_batch
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import (LanguageModel, decode_step, init_cache,
+                                          prefill)
+    ssd_scan = scan_mod.ssd_scan
+
+    cfg = REGISTRY["mamba2-370m"]
+    s = cfg.ssm
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"ssm: {cfg.name} {cfg.num_layers} layers, d_model {cfg.d_model}, d_inner "
+          f"{s.d_inner(cfg.d_model)}, {s.nheads(cfg.d_model)} heads of {s.headdim}, "
+          f"d_state {s.d_state}, d_conv {s.d_conv}, chunk {s.chunk}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}, tied): {n_params / 1e6:.2f} M "
+          f"f32 parameters ({4 * n_params / 1e9:.3f} GB), drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    args = argparse.Namespace(batch=SSM_BATCH, prompt_len=SSM_PROMPT, gen=SSM_GEN)
+    # warm-up: cuBLAS handles and workspaces
+    run_batch(cfg, model, argparse.Namespace(batch=SSM_BATCH, prompt_len=512, gen=4),
+              np.random.default_rng(1))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.launches = 0
+    res = run_batch(cfg, model, args, np.random.default_rng(0))
+    launches = ssd_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    cache_b, act_b = ssm_reckoned(cfg, SSM_BATCH, SSM_PROMPT)
+    reckoned = base + cache_b + act_b
+    check(launches == cfg.num_layers,
+          f"ssd_scan launches {launches} != {cfg.num_layers} (one prefill)")
+    check(peak <= reckoned * (1 + PEAK_MARGIN),
+          f"peak {peak / 1e9:.3f} GB over the reckoned {reckoned / 1e9:.3f} GB")
+    print(f"ssm: run_batch, batch {SSM_BATCH}, prompt {SSM_PROMPT}, {SSM_GEN} generated: "
+          f"prefill {res['prefill_s']:.3f} s ({SSM_BATCH * SSM_PROMPT / res['prefill_s']:.0f}"
+          f" tok/s), decode {res['tok_s']:.1f} tok/s ({res['decode_s']:.3f} s); "
+          f"ssd_scan launches {launches} = {cfg.num_layers} layers x 1 prefill; peak "
+          f"{peak / 1e9:.3f} GB <= reckoned {reckoned / 1e9:.3f} GB x {1 + PEAK_MARGIN} "
+          f"(allocated before {base / 1e9:.3f} GB + cache {cache_b / 1e9:.3f} GB + "
+          f"the prefill's peak layer {act_b / 1e9:.3f} GB) ({card})")
+
+    # the same prefill through the kernel and through the plain version
+    tokens = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(5))
+
+    def plain_scan(x, dt, A, Bm, Cm, chunk=256, state_out=None):
+        y, final = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+        state_out.copy_(final)
+        return y
+
+    runs = []
+    with torch.no_grad():
+        for scan in (ssd_scan, plain_scan):
+            ssm_mod.ssd_scan = scan
+            try:
+                before = ssd_scan.launches
+                cache = init_cache(model, SSM_BATCH, SSM_PROMPT + SSM_GEN)
+                logits, _ = prefill(model, cache, tokens)
+                torch.cuda.synchronize()
+                runs.append((logits, cache, ssd_scan.launches - before))
+            finally:
+                ssm_mod.ssd_scan = ssd_scan
+            gc.collect()
+            torch.cuda.empty_cache()
+    (lk, ck, nk), (lp, cp, np_) = runs
+    check(nk == cfg.num_layers and np_ == 0, f"launches {nk} / {np_} in the two prefills")
+    check(bool(torch.isfinite(lk).all()), "non-finite prefill logits")
+    valid = slice(0, cfg.vocab_size)
+    err = (lk[:, valid] - lp[:, valid]).abs().max().item()
+    scale = lp[:, valid].abs().max().item()
+    check(err <= 1e-3 * scale, f"prefill logits differ by {err} (scale {scale})")
+    s_err = (ck["state"] - cp["state"]).abs().max().item()
+    s_scale = cp["state"].abs().max().item()
+    check(s_err <= 1e-3 * s_scale, f"decode states differ by {s_err} (scale {s_scale})")
+    # the first layer's conv tail is its input's, the same on both paths;
+    # a later layer's carries the earlier layers' differences
+    c_err = (ck["conv"] - cp["conv"]).abs().max().item()
+    c_scale = cp["conv"].abs().max().item()
+    check(torch.equal(ck["conv"][0], cp["conv"][0]) and c_err <= 1e-3 * c_scale,
+          f"conv tails differ by {c_err} (scale {c_scale})")
+    print(f"ssm: prefill of {SSM_BATCH} x {SSM_PROMPT} tokens, kernel vs plain "
+          f"ssd_chunked_ref in every layer: max abs logit err {err:.3e} <= 1e-3 x "
+          f"{scale:.3f}; the {cfg.num_layers} layers' states max abs err {s_err:.3e} "
+          f"<= 1e-3 x {s_scale:.3f}, conv tails {c_err:.3e} <= 1e-3 x {c_scale:.3f} "
+          f"(the first layer's equal)")
+    del lp, cp, runs
+
+    # breakdown of one prefill and one decode tick
+    cache = ck
+    wall, kernels = profiled(torch, lambda: prefill(model, cache, tokens), repeats=1)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"breakdown: ssm prefill of {SSM_BATCH} x {SSM_PROMPT}: host {wall:.1f} ms, "
+          f"device busy {busy:.1f} ms ({100 * busy / wall:.1f} %), idle share "
+          f"{100 * (1 - busy / wall):.1f} % ({card})")
+    print("breakdown: ssm prefill kernels (ms): " + "; ".join(
+        f"{name[:60]} {ms:.2f}" for name, ms in top))
+    tok = torch.argmax(lk, dim=-1, keepdim=True).to(torch.int32)
+    wall, kernels = profiled(torch, lambda: decode_step(model, cache, tok))
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"breakdown: ssm decode tick at batch {SSM_BATCH}: host {wall:.2f} ms, device "
+          f"busy {busy:.2f} ms ({100 * busy / wall:.1f} %), idle share "
+          f"{100 * (1 - busy / wall):.1f} % ({card})")
+    print("breakdown: ssm tick kernels (ms): " + "; ".join(
+        f"{name[:60]} {ms:.3f}" for name, ms in top))
+    del cache, ck, lk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kernel alone at the slice's shape
+    B, S, H, P, N = SSM_BATCH, SSM_PROMPT, s.nheads(cfg.d_model), s.headdim, s.d_state
+    Q = chunk_len(S, s.chunk)
+    x, dt, A, Bm, Cm = ssd_inputs(torch, torch.Generator(device="cuda").manual_seed(6),
+                                  B, S, H, P, N, torch.float32)
+    out = torch.empty((B, H, P, N), device="cuda")
+    y = ssd_scan(x, dt, A, Bm, Cm, s.chunk, state_out=out)
+    ref, final = ssd_chunked_ref(x, dt, A, Bm, Cm, s.chunk)
+    torch.cuda.synchronize()
+    rel = (ssd_assert_close(torch, y, ref, dt, A, Q, 2),
+           ssd_assert_close(torch, out, final, dt, A, Q, 1))
+    err = max((y - ref).abs().max().item(), (out - final).abs().max().item())
+    del ref, final
+    ms = device_ms(torch, [lambda: ssd_scan(x, dt, A, Bm, Cm, s.chunk, state_out=out)], 5)
+    plain_ms = device_ms(torch, [lambda: ssd_chunked_ref(x, dt, A, Bm, Cm, s.chunk)], 1)
+    bound_ms, bound_by, ops = ssd_bound(B, S, H, P, N, Q, 4)
+    print(f"ssm: ssd_scan f32 at the slice's shape x ({B}, {S}, {H}, {P}), N {N}, Q {Q}: "
+          f"device time per call: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s of "
+          f"the dual form's {ops / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}), library none; max abs err {err:.3e} "
+          f"(y {rel[0][0]:.3e}, state {rel[1][0]:.3e} of max|ref|; per head "
+          f"{rel[0][1]:.2f} and {rel[1][1]:.2f} x 2^-24·cs_h·max|ref_h|) ({card})")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:76",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 # --------------------------------------------------------------------------
@@ -1733,6 +2010,7 @@ def main() -> int:
         check_gather_mix(torch)
         check_wire_kernels(torch)
         check_dequant_accumulate(torch)
+        check_ssd_scan(torch)
         phase_small(torch)
         small_train(torch)
         for codec in WIRE_CODECS_RUN:
@@ -1740,6 +2018,9 @@ def main() -> int:
         small_codec_rounds(torch)
         small_mesh_rounds(torch, mesh)
         serve_entry = phase_slice(torch, F, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ssm_entry = phase_ssm(torch, card)
         gc.collect()
         torch.cuda.empty_cache()
         train_entry = phase_train(torch, card)
@@ -1756,7 +2037,7 @@ def main() -> int:
         mesh.close()
     print(json.dumps({"kernels": [serve_entry, train_entry] + [
         wire[k] for k in ("mix_accumulate", "quantize_block", "dequantize_block")]
-        + [mesh_entry, wire["gather_mix_int8"]]}))
+        + [mesh_entry, wire["gather_mix_int8"], ssm_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 IEEE_FLAGS = ("-ftz=false", "-prec-div=true", "-prec-sqrt=true")
 #: Every kernel source of the port, by name (``csrc/<name>.cu``).
 SOURCES = ("flash_decode", "gather_mix", "mix_accumulate", "quantize_block",
-           "dequantize_block", "dequant_accumulate", "gather_mix_int8")
+           "dequantize_block", "dequant_accumulate", "gather_mix_int8",
+           "ssd_scan")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -4,9 +4,12 @@ and what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 Counterpart of ``repro/kernels/ref.py``.  The oracles of the ported
 kernels (``flash_decode``, ``gather_mix``, ``mix_accumulate`` and the
 wire codec's ``quantize_block``, ``dequantize_block``,
-``dequant_accumulate`` and ``gather_mix_int8``) are here, with :func:`round_matrix`, which the two
-gathers run outside their kernels, and :func:`padded_width`; the others
-arrive with the kernels that need them (ROADMAP.md, Queue 2).
+``dequant_accumulate`` and ``gather_mix_int8``), and the Mamba2 SSD
+scan's (:func:`ssd_scan_ref`, the sequential recurrence, and
+:func:`ssd_chunked_ref`, the chunked dual form ``ssd_scan``'s kernel is
+held to) are here, with :func:`round_matrix`, which the two gathers run
+outside their kernels, and :func:`padded_width`; ``weighted_mix``'s
+arrives with its kernel (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -201,3 +204,87 @@ def dequant_accumulate_ref(acc, q: torch.Tensor, scales: torch.Tensor,
     if acc is None:
         return deq * wf
     return _fused_add_f32(acc.double(), deq.double() * wf.double()).to(acc.dtype)
+
+
+def chunk_len(S: int, chunk: int) -> int:
+    """The SSD chunk: ``min(chunk, S)``, halved until it divides S (down
+    to 1), as ``repro/models/ssm.py:_ssd_chunked`` and the TPU
+    ``ssd_scan`` choose it."""
+    if S < 1 or chunk < 1:
+        raise ValueError(f"SSD scan needs S >= 1 and chunk >= 1, got S={S}, "
+                         f"chunk={chunk}")
+    Q = min(chunk, S)
+    while S % Q:
+        Q //= 2
+    return Q
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """The sequential SSD recurrence, the oracle
+    (``repro/kernels/ref.py:ssd_scan_ref``): from a zero state,
+    ``state = exp(dt_t·A)·state + dt_t·x_t ⊗ B_t`` and
+    ``y_t = state · C_t`` at every step, f32 math, y in x's dtype.
+
+    x (B, S, H, P); dt (B, S, H); A (H,); Bm, Cm (B, S, N)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    A = A.float()
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        xt, dtt = x[:, t].float(), dt[:, t].float()
+        da = torch.exp(dtt * A[None, :])
+        dbx = torch.einsum("bhp,bn,bh->bhpn", xt, Bm[:, t].float(), dtt)
+        state = state * da[:, :, None, None] + dbx
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, t].float()))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                    init_state=None):
+    """The chunked SSD dual form (``repro/models/ssm.py:_ssd_chunked``):
+    x (B, S, H, P); dt (B, S, H) after softplus; A (H,) negative; Bm, Cm
+    (B, S, N) single-group; ``init_state`` (B, H, P, N) or None (zeros).
+    Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32).
+
+    Per chunk of Q rows (:func:`chunk_len`), with cs the inclusive
+    cumsum of dt·A: the intra-chunk term (C·Bᵀ ∘ exp(cs_i − cs_j), j ≤ i,
+    the causal mask applied before the exp)·(dt∘x), plus
+    exp(cs_i)·C_i·(the state entering the chunk); the state is carried
+    through the chunks by ``state·exp(cs_end) + Σ_j exp(cs_end − cs_j)·
+    dt_j·x_j ⊗ B_j``.  f32 math throughout.  The (Q, Q) decay matrices
+    are laid out (B, chunks, H, Q, Q) and masked and exponentiated in
+    place, so the largest transient is one f32 tensor of that shape."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk_len(S, chunk)
+    nc = S // Q
+    dtf = dt.float()
+    cs = (dtf * A.float()[None, None, :]).reshape(Bsz, nc, Q, H).cumsum(2)
+    cs = cs.permute(0, 1, 3, 2)                              # (B, nc, H, Q)
+    xdt = (x.float() * dtf[..., None]).reshape(Bsz, nc, Q, H, P)
+    xdt = xdt.permute(0, 1, 3, 2, 4)                         # (B, nc, H, Q, P)
+    Bc = Bm.float().reshape(Bsz, nc, 1, Q, N)
+    Cc = Cm.float().reshape(Bsz, nc, 1, Q, N)
+
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = cs[..., :, None] - cs[..., None, :]                  # (B, nc, H, Q, Q)
+    L.masked_fill_(~causal, float("-inf")).exp_()
+    L.mul_(Cc @ Bc.transpose(-1, -2))                        # ∘ C·Bᵀ
+    y = L @ xdt                                              # (B, nc, H, Q, P)
+    del L
+
+    decay_to_end = torch.exp(cs[..., -1:] - cs)              # (B, nc, H, Q)
+    chunk_state = (xdt * decay_to_end[..., None]).transpose(-1, -2) @ Bc
+    chunk_decay = torch.exp(cs[..., -1])                     # (B, nc, H)
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    prev = torch.empty_like(chunk_state)                     # (B, nc, H, P, N)
+    for c in range(nc):
+        prev[:, c] = state
+        state = state * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    y += torch.exp(cs)[..., None] * (Cc @ prev.transpose(-1, -2))
+    y = y.permute(0, 1, 3, 2, 4).reshape(Bsz, S, H, P)
+    return y.to(x.dtype), state

@@ -7,7 +7,10 @@ module imports no JAX).  Its layer leaves are stacked per segment:
 ``seg{si}/sub{i}/...`` with a leading ``repeats`` axis, and layer
 ``r · len(pattern) + i`` of a segment is slice ``r`` of ``sub{i}``.
 Dense weights keep the reference's ``(d_in, d_out)`` orientation; they
-are copied, not transposed.
+are copied, not transposed.  A dense layer's leaves are ``norm1``,
+``attn/*``, ``norm2`` and ``mlp/*``; a Mamba2 layer's ``norm1`` and
+``mamba/*`` (``in_proj``, ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``,
+``D``, ``norm``, ``out_proj``).
 """
 
 from __future__ import annotations
@@ -50,13 +53,13 @@ def module_state(cfg: ArchConfig, tree: dict) -> Dict[str, torch.Tensor]:
         seg = tree[f"seg{si}"]
         for r in range(repeats):
             for i in range(len(pattern)):
-                sub = seg[f"sub{i}"]
                 name = f"layers.{layer + r * len(pattern) + i}"
-                state[f"{name}.norm1"] = sub["norm1"][r]
-                state[f"{name}.norm2"] = sub["norm2"][r]
-                for group in ("attn", "mlp"):
-                    for key, leaf in sub[group].items():
-                        state[f"{name}.{group}.{key}"] = leaf[r]
+                for key, leaf in seg[f"sub{i}"].items():
+                    if isinstance(leaf, dict):    # attn, mlp or mamba
+                        for k, v in leaf.items():
+                            state[f"{name}.{key}.{k}"] = v[r]
+                    else:                         # norm1, norm2
+                        state[f"{name}.{key}"] = leaf[r]
         layer += repeats * len(pattern)
     return state
 

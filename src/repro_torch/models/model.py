@@ -1,10 +1,13 @@
-"""The language model of the port: the dense decoder of
-``repro/models/model.py`` with its decode cache.
+"""The language model of the port: the dense decoder and the Mamba2
+(SSM) stack of ``repro/models/model.py``, with their decode cache.
 
 The reference stacks each segment's layers and runs a ``lax.scan`` over
 them; here the layers are an ``nn.ModuleList`` walked in Python.  Each
-layer mirrors the reference's parameter tree: ``norm1``, ``attn`` (a
-``ParameterDict``), ``norm2``, ``mlp`` (a ``ParameterDict``).
+layer mirrors the reference's parameter tree: a dense layer holds
+``norm1``, ``attn`` (a ``ParameterDict``), ``norm2``, ``mlp`` (a
+``ParameterDict``); a Mamba2 layer ``norm1`` and ``mamba`` (a
+``ParameterDict``, :mod:`repro_torch.models.ssm`), with no FFN in the
+``ssm`` family.
 
 API
 ---
@@ -28,15 +31,18 @@ copies a client into a module nor back:
 * ``train_loss(cfg, params, batch)`` → the mean next-token
   cross-entropy (``repro/models/model.py:441``).
 
-The cache is ``{"pos", "k", "v"}`` with k and v of shape
-(num_layers, B, L, Hkv, hd), allocated once; prefill and decode write it
-in place.  ``pos`` is a 0-d tensor for the whole-batch decode loop or a
-per-slot (B,) vector for the serving loop, where rows with pos < 0 are
-empty slots: zero attention output, position frozen.
+The cache holds ``pos`` and, allocated once, ``k`` and ``v`` of shape
+(num_layers, B, L, Hkv, hd), or for a Mamba2 stack ``state``
+(num_layers, B, H, P, N) f32 and ``conv`` (num_layers, B, d_conv − 1,
+d_inner + 2·N); prefill and decode write them in place.  ``pos`` is a
+0-d tensor for the whole-batch decode loop or a per-slot (B,) vector for
+the serving loop, where rows with pos < 0 are empty slots: zero
+attention output, position frozen.
 
-Only the dense-attention family is served in this slice; a config with
-MLA, MoE, SSM, hybrid or encoder-decoder layers raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Dense-attention and SSM (Mamba2) models are served; training takes the
+dense family only.  A config with MLA, MoE, hybrid or encoder-decoder
+layers, and training an SSM, raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .config import ArchConfig
 from .layers import (dense_init, embed_apply, embed_init, mlp_apply, rmsnorm,
                      softmax_xent, unembed_apply)
@@ -57,8 +64,8 @@ LayerKind = Tuple[str, Optional[str], bool]   # (mixer, ffn, cross)
 _NOT_PORTED = {
     "mla": "MLA decode (ROADMAP.md Queue 1 item 8)",
     "moe": "the MoE FFN (ROADMAP.md Queue 1 item 4)",
-    "ssm": "the Mamba2 mixer (ROADMAP.md Queue 1 item 9)",
-    "hybrid": "the Mamba2 mixer (ROADMAP.md Queue 1 item 9)",
+    "hybrid": ("the hybrid (Jamba) stack, which waits for the MoE FFN "
+               "(ROADMAP.md Queue 1 items 4 and 14)"),
     "enc_dec": "encoder-decoder cross-attention (ROADMAP.md Queue 1 item 8)",
 }
 
@@ -98,12 +105,24 @@ def find_segments(kinds: List[LayerKind]) -> List[Tuple[Tuple[LayerKind, ...], i
 
 def check_servable(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless every layer is dense GQA
-    attention with a dense MLP."""
+    attention with a dense MLP, or every layer a Mamba2 mixer (the
+    ``ssm`` family)."""
     for field, what in _NOT_PORTED.items():
         if getattr(cfg, field):
             raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet; this slice serves "
-                f"dense-attention models only")
+                f"{cfg.name}: {what} is not ported yet; the port serves "
+                f"dense-attention and SSM models only")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless the dense family: training an
+    SSM (``mamba_apply`` through autograd) is not ported yet."""
+    if cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: SSM training (mamba_apply, forward and train_loss "
+            f"for the ssm family) is not ported yet (ROADMAP.md Queue 1 "
+            f"item 13); the port trains dense-attention models only")
+    check_servable(cfg)
 
 
 class DecoderLayer(nn.Module):
@@ -150,6 +169,31 @@ class DecoderLayer(nn.Module):
         return self._ffn(cfg, x + h)
 
 
+class MambaLayer(nn.Module):
+    """Pre-norm Mamba2 mixer with its residual; no FFN (the ``ssm``
+    family, ``repro/models/model.py:117-139``)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, dtype):
+        super().__init__()
+        self.norm1 = nn.Parameter(
+            torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
+            requires_grad=False)
+        self.mamba = nn.ParameterDict({
+            k: nn.Parameter(v, requires_grad=False) for k, v in
+            ssm_mod.mamba_init(gen, cfg.d_model, cfg.ssm, dtype).items()})
+
+    def prefill(self, cfg: ArchConfig, x: torch.Tensor, c: dict) -> torch.Tensor:
+        h = rmsnorm(self.norm1, x, cfg.rms_eps)
+        h, _ = ssm_mod.mamba_prefill(self.mamba, h, c, cfg.ssm, cfg.rms_eps)
+        return x + h
+
+    def decode(self, cfg: ArchConfig, x: torch.Tensor, c: dict,
+               pos) -> torch.Tensor:
+        h = rmsnorm(self.norm1, x, cfg.rms_eps)
+        h, _ = ssm_mod.mamba_decode(self.mamba, h, c, cfg.ssm, cfg.rms_eps)
+        return x + h
+
+
 def _attn_kwargs(cfg: ArchConfig) -> dict:
     return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
@@ -157,10 +201,11 @@ def _attn_kwargs(cfg: ArchConfig) -> dict:
 
 
 class LanguageModel(nn.Module):
-    """The dense decoder.  Weights are drawn from ``generator`` and live
-    on its device; dense weights are (d_in, d_out), drawn
-    U(±1/sqrt(d_in)), embeddings N(0, 0.02²), norms ones, as in the
-    reference's ``init_params``."""
+    """The dense decoder, or the Mamba2 stack.  Weights are drawn from
+    ``generator`` and live on its device; dense weights are (d_in, d_out),
+    drawn U(±1/sqrt(d_in)), embeddings N(0, 0.02²), norms ones, the mixer's
+    as :func:`repro_torch.models.ssm.mamba_init`, as in the reference's
+    ``init_params``."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  dtype=torch.float32):
@@ -178,7 +223,8 @@ class LanguageModel(nn.Module):
             self.lm_head = nn.Parameter(
                 embed_init(generator, cfg.padded_vocab, cfg.d_model, dtype),
                 requires_grad=False)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, generator, dtype)
+        layer = MambaLayer if cfg.ssm is not None else DecoderLayer
+        self.layers = nn.ModuleList(layer(cfg, generator, dtype)
                                     for _ in range(cfg.num_layers))
 
     @property
@@ -208,15 +254,22 @@ def init_cache(model: LanguageModel, batch: int, cache_len: int,
                dtype=torch.float32, per_slot_pos: bool = False) -> dict:
     """Allocate the decode cache once.  With ``per_slot_pos`` the cache
     carries a (batch,) int32 position vector set to -1 (every slot
-    empty); otherwise a 0-d position at 0.  A sliding window caps each
-    layer's cache at ``window`` slots (a ring)."""
+    empty); otherwise a 0-d position at 0.  Attention layers get K/V of
+    ``cache_len`` slots (a sliding window caps them at ``window``, a
+    ring); a Mamba2 stack gets each layer's recurrent state and conv tail
+    (:func:`repro_torch.models.ssm.init_ssm_cache`), stacked."""
     cfg = model.cfg
-    length = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    shape = (cfg.num_layers, batch, length, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
     dev = model.device
     pos = (torch.full((batch,), -1, dtype=torch.int32, device=dev)
            if per_slot_pos else torch.zeros((), dtype=torch.int32, device=dev))
+    L = cfg.num_layers
+    if cfg.ssm is not None:
+        one = ssm_mod.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype, "meta")
+        return {"pos": pos, **{name: torch.zeros((L,) + tuple(t.shape), dtype=t.dtype,
+                                                 device=dev)
+                               for name, t in one.items()}}
+    length = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    shape = (L, batch, length, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"pos": pos,
             "k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -225,12 +278,13 @@ def init_cache(model: LanguageModel, batch: int, cache_len: int,
 def cache_rows(cache: dict, start: int, stop: int) -> dict:
     """Views of batch rows [start, stop) of a per-slot cache: writes
     through them land in ``cache``."""
-    return {"pos": cache["pos"][start:stop],
-            "k": cache["k"][:, start:stop], "v": cache["v"][:, start:stop]}
+    return {name: t[start:stop] if name == "pos" else t[:, start:stop]
+            for name, t in cache.items()}
 
 
-def _layer_kv(cache: dict, i: int) -> dict:
-    return {"k": cache["k"][i], "v": cache["v"][i]}
+def _layer_cache(cache: dict, i: int) -> dict:
+    """Layer i's views of the cache: its K/V, or its state and conv tail."""
+    return {name: t[i] for name, t in cache.items() if name != "pos"}
 
 
 def prefill(model: LanguageModel, cache: dict, tokens: torch.Tensor,
@@ -245,7 +299,9 @@ def prefill(model: LanguageModel, cache: dict, tokens: torch.Tensor,
     real queries, the cache slots past lengths[b] hold inert values
     masked by the per-slot position, and the logits are taken at
     lengths[b] - 1.  Ragged prompts need a per-slot position cache and
-    must fit the sliding-window ring."""
+    must fit the sliding-window ring; a stack with a Mamba2 layer takes
+    none (its recurrent state would absorb the padding).  A Mamba2 layer
+    starts from a fresh state whatever the cache holds."""
     cfg = model.cfg
     B, P = tokens.shape
     per_slot = cache["pos"].dim() == 1
@@ -253,12 +309,16 @@ def prefill(model: LanguageModel, cache: dict, tokens: torch.Tensor,
         if not per_slot:
             raise ValueError("ragged prefill needs a per-slot pos cache "
                              "(init_cache(..., per_slot_pos=True))")
+        if cfg.ssm is not None:
+            raise ValueError("ragged prefill is not supported for SSM/hybrid "
+                             "stacks: the recurrent state would absorb the "
+                             "padding tokens")
         if cfg.sliding_window and P > cfg.sliding_window:
             raise ValueError("ragged prefill cannot exceed the sliding-window "
                              "ring; trim prompts to the window")
     x = embed_apply(model.embed, tokens)
     for i, layer in enumerate(model.layers):
-        x = layer.prefill(cfg, x, _layer_kv(cache, i))
+        x = layer.prefill(cfg, x, _layer_cache(cache, i))
     if lengths is None:
         last = x[:, -1]
         cache["pos"].fill_(P)
@@ -272,14 +332,14 @@ def prefill(model: LanguageModel, cache: dict, tokens: torch.Tensor,
 def decode_step(model: LanguageModel, cache: dict,
                 token: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """One decode step.  token: (B, 1) int.  Returns (logits (B, V) f32,
-    cache with this token's K/V written and pos advanced).  Rows with
-    pos < 0 are empty slots: their position does not advance and their
-    logits are garbage the caller must mask."""
+    cache with this token's K/V (or recurrent state) written and pos
+    advanced).  Rows with pos < 0 are empty slots: their position does
+    not advance and their logits are garbage the caller must mask."""
     cfg = model.cfg
     pos = cache["pos"]
     x = embed_apply(model.embed, token)
     for i, layer in enumerate(model.layers):
-        x = layer.decode(cfg, x, _layer_kv(cache, i), pos)
+        x = layer.decode(cfg, x, _layer_cache(cache, i), pos)
     logits = model.logits(x[:, 0])
     if pos.dim() == 0:
         pos.add_(1)
@@ -298,8 +358,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     distributions: dense weights (d_in, d_out) U(±1/sqrt(d_in)),
     embeddings N(0, 0.02²), norms ones.  Each segment's leaves are
     stacked over its repeats.  The tree lives on ``device``, by default
-    the generator's; ``device="meta"`` gives its shapes alone."""
-    check_servable(cfg)
+    the generator's; ``device="meta"`` gives its shapes alone.  The dense
+    family only (:func:`check_trainable`)."""
+    check_trainable(cfg)
     dev = generator.device if device is None else torch.device(device)
     d, hd = cfg.d_model, cfg.resolved_head_dim
 
@@ -353,7 +414,7 @@ def forward(cfg: ArchConfig, params: dict,
     layer over the whole causal sequence, final norm, unembedding and
     the padded-vocab mask (``repro/models/model.py:forward``, dense
     family)."""
-    check_servable(cfg)
+    check_trainable(cfg)
     x = embed_apply(params["embed"], tokens)
     for si, (pattern, repeats) in enumerate(find_segments(layer_plan(cfg))):
         seg = params[f"seg{si}"]

@@ -46,7 +46,7 @@ import torch
 
 from ..models.convert import module_state
 from ..models.model import (LanguageModel, cache_rows, decode_step,
-                            init_cache, prefill)
+                            init_cache, layer_plan, prefill)
 from ..obs.events import get_telemetry
 from ..obs.rounds import get_round_ledger
 from .slots import SlotMap
@@ -113,6 +113,10 @@ class ServeLoop:
         if cfg.sliding_window and prompt_len > cfg.sliding_window:
             raise ValueError("padded prompts longer than the sliding window "
                              "are not servable (ragged ring prefill)")
+        if any(k[0] == "mamba" for k in layer_plan(cfg)):
+            raise ValueError("ServeLoop pads ragged prompts, which SSM "
+                             "stacks cannot prefill; serve attention "
+                             "models here")
         self.model = model
         self.capacity = capacity
         self.cache_len = cache_len

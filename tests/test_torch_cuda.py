@@ -1,10 +1,11 @@
 """The port on the card: the CUDA ``flash_decode``, ``gather_mix``,
-``mix_accumulate``, ``quantize_block``, ``dequantize_block`` and
-``gather_mix_int8`` kernels against their plain PyTorch versions, and
-the serving and slot training loops (codec-free and under the block
-codecs) on the card against the same on the CPU.  Every test here needs an NVIDIA GPU and skips without one;
-the file imports neither JAX nor the reference package, so it also runs
-where only PyTorch is installed:
+``mix_accumulate``, ``quantize_block``, ``dequantize_block``,
+``gather_mix_int8``, ``dequant_accumulate`` and ``ssd_scan`` kernels
+against their plain PyTorch versions, and the serving and slot training
+loops (codec-free and under the block codecs) and the Mamba2 prefill on
+the card against the same on the CPU.  Every test here needs an NVIDIA
+GPU and skips without one; the file imports neither JAX nor the
+reference package, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -652,3 +653,136 @@ def test_per_rank_round_card_matches_cpu(cuda, nccl_mesh, codec, masked):
         assert torch.equal(_bits(gpu_res), _bits(cpu_res))
     if codec == "int8-block":
         assert counts == [4, 1, 1]
+
+
+# --------------------------------------------------------------------------
+# ssd_scan and the Mamba2 serving path
+# --------------------------------------------------------------------------
+
+SSD_SHAPES = [(1, 256, 1, 64, 64, 256), (2, 512, 4, 64, 128, 256),
+              (1, 96, 3, 128, 64, 256),       # Q = 96: one ragged row tile
+              (4, 7, 32, 64, 128, 256),       # Q = 7
+              (3, 300, 5, 32, 32, 16),        # Q halves to 4
+              (2, 768, 2, 128, 128, 256), (1, 2048, 2, 64, 128, 1024),
+              (1, 512, 2, 32, 128, 256), (2, 384, 3, 128, 32, 128)]
+
+
+def ssd_inputs(gen, B, S, H, P, N, dtype):
+    """The mixer's ranges: dt a softplus of N(0, 1), A = −(1..H), x, B and C
+    N(0, 1)."""
+    dev = gen.device
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    return (_rand(gen, B, S, H, P, dtype=dtype), dt, A,
+            _rand(gen, B, S, N, dtype=dtype), _rand(gen, B, S, N, dtype=dtype))
+
+
+def assert_ssd_close(got, ref, dt, A, Q, head_dim):
+    """ssd_scan's y (head_dim 2) or final state (head_dim 1) against the
+    plain version, head by head: |got - ref| <= rtol·|ref| + (base +
+    32·2^-24·cs_h)·max|ref_h|, cs_h the largest |within-chunk cumsum of
+    dt·A_h|.  Both sides form each decay exp(cs_i - cs_j) from such a
+    cumsum, whose rounding shifts the exponent by a few 2^-24·|cs|; the
+    plain version's own error against float64 read at most
+    0.6·2^-24·cs_h·max|y_h| on the CPU, and the factor 32 leaves room for
+    the card's cumsum, exp and sums.  base 1e-5 for f32 sums in
+    another order; bf16 y adds 1e-2 (base and rtol) for its one rounding
+    to bf16."""
+    B, S, H = dt.shape
+    cs = (dt * A).reshape(B, S // Q, Q, H).sum(2).abs().amax(dim=(0, 1))
+    base, rtol = (1e-2, 1e-2) if got.dtype == torch.bfloat16 else (1e-5, 0.0)
+    g, r = got.float().movedim(head_dim, 0), ref.float().movedim(head_dim, 0)
+    limit = (base + 32 * 2.0 ** -24 * cs) * r.abs().reshape(H, -1).amax(dim=1)
+    excess = ((g - r).abs() - rtol * r.abs()).reshape(H, -1).amax(dim=1) - limit
+    assert bool((excess <= 0).all()), excess
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_scan_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
+    """y and the final state against the plain chunked version; one
+    launch a call."""
+    from repro_torch.kernels.ref import chunk_len, ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator(device=cuda).manual_seed(B * S + H * P + N)
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, dtype)
+    before = ssd_scan.launches
+    out = torch.full((B, H, P, N), float("nan"), device=cuda)
+    y = ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out)
+    ref, final = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and ssd_scan.launches == before + 1
+    assert_ssd_close(y, ref, dt, A, chunk_len(S, chunk), 2)
+    assert_ssd_close(out, final, dt, A, chunk_len(S, chunk), 1)
+
+
+def test_ssd_scan_reads_row_strided_views(cuda):
+    """x, B and C as the prefill hands them over: slices of one conv output
+    with a row stride of d_inner + 2N."""
+    from repro_torch.kernels.ref import chunk_len, ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, S, H, P, N = 2, 640, 4, 64, 128
+    xbc = _rand(gen, B, S, H * P + 2 * N)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=cuda)
+    out = torch.empty((B, H, P, N), device=cuda)
+    y = ssd_scan(x, dt, A, Bm, Cm, 256, state_out=out)
+    ref, final = ssd_chunked_ref(x.contiguous(), dt, A, Bm.contiguous(),
+                                 Cm.contiguous(), 256)
+    torch.cuda.synchronize()
+    Q = chunk_len(S, 256)
+    assert Q == 128
+    assert_ssd_close(y, ref, dt, A, Q, 2)
+    assert_ssd_close(out, final, dt, A, Q, 1)
+
+
+def test_ssd_scan_rejects_bad_layouts(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, A, Bm, Cm = ssd_inputs(gen, 1, 64, 2, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="headdim"):
+        ssd_scan(*ssd_inputs(gen, 1, 64, 2, 16, 64, torch.float32))
+    with pytest.raises(ValueError, match="headdim"):
+        ssd_scan(*ssd_inputs(gen, 1, 64, 2, 64, 256, torch.float32))
+    with pytest.raises(ValueError, match="at most 1024"):
+        ssd_scan(*ssd_inputs(gen, 1, 2048, 1, 64, 64, torch.float32), chunk=2048)
+    with pytest.raises(ValueError, match="all float32 or all"):
+        ssd_scan(x, dt, A, Bm.bfloat16(), Cm)
+    with pytest.raises(ValueError, match="float32 dt and A"):
+        ssd_scan(x, dt.double(), A, Bm, Cm)
+    with pytest.raises(ValueError, match="dense"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="state_out must be"):
+        ssd_scan(x, dt, A, Bm, Cm, state_out=torch.empty((1, 2, 64, 64)))
+
+
+def test_mamba2_run_batch_card_matches_cpu(cuda):
+    """The reduced Mamba2-370m (2 layers, headdim 32, d_state 32) served by
+    ``run_batch`` on the card and on the CPU from the same weights:
+    prefill logits within 1e-4 scaled and states within 1e-5 x max|ref|;
+    one ``ssd_scan`` launch a layer."""
+    import argparse
+    from repro_torch.configs import REGISTRY, reduce_for_smoke
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.serve import run_batch
+    from repro_torch.models.model import init_cache, prefill
+    cfg = reduce_for_smoke(REGISTRY["mamba2-370m"])
+    cpu = LanguageModel(cfg, torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (3, 40)))
+    runs = []
+    for model in (cpu, gpu):
+        cache = init_cache(model, 3, 40)
+        before = ssd_scan.launches
+        logits, _ = prefill(model, cache, toks.to(model.device))
+        runs.append((logits.cpu(), cache["state"].cpu(), ssd_scan.launches - before))
+    (lc, sc, nc), (lg, sg, ng) = runs
+    assert nc == 0 and ng == cfg.num_layers
+    assert (lg - lc).abs().max().item() <= 1e-4 * max(1.0, lc.abs().max().item())
+    torch.testing.assert_close(sg, sc, rtol=0.0, atol=1e-5 * sc.abs().max().item())
+    res = run_batch(cfg, gpu, argparse.Namespace(batch=2, prompt_len=33, gen=6),
+                    np.random.default_rng(0))
+    assert res["tok_s"] > 0

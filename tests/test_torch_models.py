@@ -262,7 +262,7 @@ def test_prefill_equals_stepped_decode():
 
 
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b",
-                                  "mamba2-370m", "jamba-1.5-large-398b",
+                                  "jamba-1.5-large-398b",
                                   "seamless-m4t-medium"])
 def test_unported_families_raise(name):
     cfg = reduce_for_smoke(T_REGISTRY[name])
