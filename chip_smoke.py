@@ -559,7 +559,13 @@ def ssm_reckoned(cfg, B, S) -> tuple:
 def phase_ssm(torch, card):
     """Mamba2-370m served by run_batch at full width and depth: launches,
     memory, the kernel against the plain path end to end, a breakdown,
-    and the kernel alone at the slice's shape."""
+    and the kernel alone at the slice's shape.  The prefill through the
+    kernel is held to the same prefill through the plain scan at 1e-3 of
+    max|ref| for the last-token logits, the 48 layers' states and their
+    conv tails (the first layer's tail exactly): each layer's scan
+    differs by the decay rounding (ssd_assert_close), about 1e-5 of a
+    head's scale, and the layers carry it on; a CPU run at full width
+    and depth read 5e-6 between two chunk sizes."""
     import numpy as np
     from repro_torch.configs import REGISTRY
     from repro_torch.kernels import ssd_scan as scan_mod
