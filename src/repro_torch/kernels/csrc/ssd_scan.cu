@@ -11,8 +11,8 @@
 //     state'  = exp(cs_end)·state + Σ_j exp(cs_end − cs_j)·dt_j·x_j ⊗ B_j
 // in f32 (FMA on the CUDA cores, no tensor cores, so no TF32), y in x's
 // dtype.  The state starts at zero; the state after the last chunk is
-// written to `final_state` when that is not null (the TPU kernel drops it;
-// a prefill needs it to prime the decode cache).
+// written to `final_state` (the TPU kernel drops it; a prefill needs it to
+// prime the decode cache).
 //
 // Bound: operations.  At the slice's shape (B 4, S 32768, H 32, P 64,
 // N 128, Q 256) the dual form does about 21 MFLOP per (b, h, chunk) for
@@ -285,12 +285,10 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(const Args a) {
     }
   }
 
-  if (a.final_state != nullptr) {
-    __syncthreads();
-    for (int e = tid; e < N * P; e += THREADS) {
-      const int p = e / N, n = e % N;
-      a.final_state[st_off + e] = stT[n * P + p];
-    }
+  __syncthreads();
+  for (int e = tid; e < N * P; e += THREADS) {
+    const int p = e / N, n = e % N;
+    a.final_state[st_off + e] = stT[n * P + p];
   }
 }
 
@@ -330,18 +328,19 @@ extern "C" {
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 when it
 // was accepted; cudaErrorInvalidValue for P or N outside {32, 64, 128}, a
-// chunk Q outside [1, 1024] or not dividing S, or B·H outside
-// [1, 2^31 − 1]).  x (B, S, H, P) with its (H, P) dims dense and strides
-// x_sb, x_ss (elements) over batch and step; Bm and Cm (B, S, N) with n
-// dense and strides over batch and step; all three bf16 when `bf16`, else
-// f32.  dt (B, S, H) and A (H,) dense f32; y a dense (B, S, H, P) buffer of
-// x's dtype; final_state (may be null) a dense (B, H, P, N) f32 buffer.
+// chunk Q outside [1, 1024] or not dividing S, B·H outside [1, 2^31 − 1]
+// or a null final_state).  x (B, S, H, P) with its (H, P) dims dense and
+// strides x_sb, x_ss (elements) over batch and step; Bm and Cm (B, S, N)
+// with n dense and strides over batch and step; all three bf16 when
+// `bf16`, else f32.  dt (B, S, H) and A (H,) dense f32; y a dense (B, S, H, P) buffer of
+// x's dtype; final_state a dense (B, H, P, N) f32 buffer.
 int ssd_scan(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
              void* y, void* final_state, int B, int S, int H, int P, int N,
              int Q, long long x_sb, long long x_ss, long long b_sb, long long b_ss,
              long long c_sb, long long c_ss, int bf16, void* stream) {
   const long long blocks = (long long)B * H;
-  if (B < 1 || H < 1 || S < 1 || Q < 1 || Q > MAX_Q || S % Q != 0 || blocks > 0x7fffffffLL)
+  if (B < 1 || H < 1 || S < 1 || Q < 1 || Q > MAX_Q || S % Q != 0 || blocks > 0x7fffffffLL ||
+      final_state == nullptr)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x; a.dt = static_cast<const float*>(dt); a.A = static_cast<const float*>(A);

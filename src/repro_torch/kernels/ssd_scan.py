@@ -4,9 +4,10 @@ The port of ``repro/kernels/ssd_scan.py:ssd_scan`` (a Pallas TPU kernel).
 x (B, S, H, P), dt (B, S, H) after softplus, A (H,) negative, and
 single-group Bm, Cm (B, S, N) give y (B, S, H, P) in x's dtype, by the
 chunked dual form over chunks of ``chunk_len(S, chunk)`` rows, f32 math,
-from a zero state.  The state after the last step is written into
-``state_out`` (B, H, P, N) f32 when the caller passes it (the TPU kernel
-drops it; a prefill primes the decode cache with it).
+from a zero state.  The state after the last step, (B, H, P, N) f32, is
+always written out: into ``state_out`` when the caller passes it (a
+cache's rows), else into a new tensor (the TPU kernel drops it; a
+prefill primes the decode cache with it).
 
 On a CUDA tensor this launches ``csrc/ssd_scan.cu`` (its header says what
 bounds it and how it is laid out), and raises if the build or the launch
@@ -25,7 +26,7 @@ count.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,10 +52,11 @@ def _library():
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 256,
-             state_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (B, S, H, P), dt (B, S, H), A (H,), Bm / Cm (B, S, N) → y
-    (B, S, H, P) in x's dtype; the final state goes into ``state_out``
-    when given.
+             state_out: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, H, P), dt (B, S, H), A (H,), Bm / Cm (B, S, N) → (y
+    (B, S, H, P) in x's dtype, final state (B, H, P, N) f32); the final
+    state is ``state_out`` when given, else a new tensor.
 
     Raises ``ValueError`` for shapes that do not agree, mixed devices, a
     state buffer of another shape, dtype or device, and, on the card, for
@@ -72,17 +74,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
     Q = chunk_len(S, chunk)
-    if state_out is not None and (
-            tuple(state_out.shape) != (Bsz, H, P, N)
-            or state_out.dtype != torch.float32 or state_out.device != x.device):
+    if state_out is None:
+        state_out = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    elif (tuple(state_out.shape) != (Bsz, H, P, N)
+          or state_out.dtype != torch.float32 or state_out.device != x.device):
         raise ValueError(
             f"state_out must be a {(Bsz, H, P, N)} float32 tensor on {x.device}; "
             f"got {tuple(state_out.shape)} {state_out.dtype} on {state_out.device}")
     if x.device.type == "cpu":
         y, final = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
-        if state_out is not None:
-            state_out.copy_(final)
-        return y
+        return y, state_out.copy_(final)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
@@ -100,16 +101,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.stride(3) != 1 or x.stride(2) != P or Bm.stride(2) != 1 or Cm.stride(2) != 1:
         raise ValueError("ssd_scan needs x's (H, P) dims and Bm's and Cm's N dim "
                          "dense")
-    if not all(t.is_contiguous() for t in (dt, A) + (
-            () if state_out is None else (state_out,))):
+    if not all(t.is_contiguous() for t in (dt, A, state_out)):
         raise ValueError("ssd_scan needs contiguous dt, A and state_out")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(),
-            None if state_out is None else state_out.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), state_out.data_ptr(),
             Bsz, S, H, P, N, Q, x.stride(0), x.stride(1), Bm.stride(0),
             Bm.stride(1), Cm.stride(0), Cm.stride(1),
             int(x.dtype == torch.bfloat16),
@@ -118,7 +117,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise RuntimeError("ssd_scan launch failed: "
                            + lib.ssd_scan_error_string(err).decode())
     ssd_scan.launches += 1
-    return y
+    return y, state_out
 
 
 ssd_scan.launches = 0

@@ -88,15 +88,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD scan (``repro/models/ssm.py:ssd_chunked``) from a
     zero state, through :func:`ssd_scan`: (y (B, S, H, P) in x's dtype,
-    final state (B, H, P, N) f32).  The final state is written into
-    ``state_out`` when given (a cache's rows), else into a new tensor.
+    final state (B, H, P, N) f32, written into ``state_out`` when given).
     (The reference's ``init_state`` has no caller there and is not
     ported here; the plain ``ssd_chunked_ref`` keeps it.)"""
-    Bsz, _, H, P = x.shape
-    if state_out is None:
-        state_out = torch.empty((Bsz, H, P, Bm.shape[-1]), dtype=torch.float32,
-                                device=x.device)
-    return ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=state_out), state_out
+    return ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=state_out)
 
 
 def init_ssm_cache(batch: int, d_model: int, s: SSMConfig,

@@ -680,19 +680,21 @@ def ssd_inputs(gen, B, S, H, P, N, dtype):
 def assert_ssd_close(got, ref, dt, A, Q, head_dim):
     """ssd_scan's y (head_dim 2) or final state (head_dim 1) against the
     plain version, head by head: |got - ref| <= rtol·|ref| + (base +
-    32·2^-24·cs_h)·max|ref_h|, cs_h the largest |within-chunk cumsum of
+    8·2^-24·cs_h)·max|ref_h|, cs_h the largest |within-chunk cumsum of
     dt·A_h|.  Both sides form each decay exp(cs_i - cs_j) from such a
     cumsum, whose rounding shifts the exponent by a few 2^-24·|cs|; the
     plain version's own error against float64 read at most
-    0.6·2^-24·cs_h·max|y_h| on the CPU, and the factor 32 leaves room for
-    the card's cumsum, exp and sums.  base 1e-5 for f32 sums in
+    0.6·2^-24·cs_h·max|y_h| on the CPU, and the card's kernel against it
+    at most 0.87 (f32) and 1.47 (bf16 state) times 2^-24·cs_h·max|ref_h|
+    (PERF.md §6): the factor 8, as in chip_smoke.py, is about 5x the
+    largest.  base 1e-5 for f32 sums in
     another order; bf16 y adds 1e-2 (base and rtol) for its one rounding
     to bf16."""
     B, S, H = dt.shape
     cs = (dt * A).reshape(B, S // Q, Q, H).sum(2).abs().amax(dim=(0, 1))
     base, rtol = (1e-2, 1e-2) if got.dtype == torch.bfloat16 else (1e-5, 0.0)
     g, r = got.float().movedim(head_dim, 0), ref.float().movedim(head_dim, 0)
-    limit = (base + 32 * 2.0 ** -24 * cs) * r.abs().reshape(H, -1).amax(dim=1)
+    limit = (base + 8 * 2.0 ** -24 * cs) * r.abs().reshape(H, -1).amax(dim=1)
     excess = ((g - r).abs() - rtol * r.abs()).reshape(H, -1).amax(dim=1) - limit
     assert bool((excess <= 0).all()), excess
 
@@ -708,7 +710,7 @@ def test_ssd_scan_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
     x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, dtype)
     before = ssd_scan.launches
     out = torch.full((B, H, P, N), float("nan"), device=cuda)
-    y = ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out)
+    y, _ = ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out)
     ref, final = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
     assert y.dtype == dtype and ssd_scan.launches == before + 1
@@ -729,7 +731,7 @@ def test_ssd_scan_reads_row_strided_views(cuda):
     dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
     A = -torch.arange(1, H + 1, dtype=torch.float32, device=cuda)
     out = torch.empty((B, H, P, N), device=cuda)
-    y = ssd_scan(x, dt, A, Bm, Cm, 256, state_out=out)
+    y, _ = ssd_scan(x, dt, A, Bm, Cm, 256, state_out=out)
     ref, final = ssd_chunked_ref(x.contiguous(), dt, A, Bm.contiguous(),
                                  Cm.contiguous(), 256)
     torch.cuda.synchronize()

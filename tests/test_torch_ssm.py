@@ -136,7 +136,7 @@ def test_ssd_scan_matches_pallas_interpret(B, S, H, P, N, chunk, dtype):
     tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
     xt, Bt, Ct = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
                   for a in (xj, Bj, Cj))
-    y = ssd_scan(xt, *_t(dt, A), Bt, Ct, chunk)
+    y, _ = ssd_scan(xt, *_t(dt, A), Bt, Ct, chunk)
     assert y.dtype == tdt
     tol = dict(rtol=5e-2, atol=5e-2) if dtype == jnp.bfloat16 else \
         dict(rtol=2e-4, atol=2e-4)
