@@ -8,11 +8,12 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` first.
 Phases, each printing its lines:
 
 1. environment: torch and CUDA versions, TF32 settings, the card;
-2. build: every kernel of the port (``flash_decode``, ``gather_mix``,
-   ``mix_accumulate``, ``quantize_block``, ``dequantize_block``,
-   ``dequant_accumulate``, ``gather_mix_int8``, ``ssd_scan``), one
-   ``nvcc`` per source, all started together, timed; then the one-rank NCCL client
-   group (``repro_torch.launch.mesh``) on a free localhost port;
+2. build: every kernel of the port, nine sources (``flash_decode``,
+   ``gather_mix``, ``mix_accumulate``, ``quantize_block``,
+   ``dequantize_block``, ``dequant_accumulate``, ``gather_mix_int8``,
+   ``ssd_scan``, ``weighted_mix``), one ``nvcc`` per source, all started
+   together, timed; then the one-rank NCCL client group
+   (``repro_torch.launch.mesh``) on a free localhost port;
 3. kernels: each kernel against its plain PyTorch version on the card:
    ``flash_decode`` at the CPU tests' shapes and at the ``decode_32k``
    width, with times; ``gather_mix`` over f32 and bf16, C from 2 to 200,
@@ -26,6 +27,8 @@ Phases, each printing its lines:
    init form, blocks 128, 64 and 32, B from 1 to 65535, in place);
    ``ssd_scan``, y and the final state, f32 and bf16, S a multiple of
    256 and S that makes the chunk halve, B 1-4, H 1-32, P and N 32-128;
+   ``weighted_mix`` bit for bit, f32 and bf16, K 1-100, N 1 to 2^24 + 3,
+   masked, all masked, row-strided, out a row of the input;
 4. small: the ``tiny_lm`` ``ServeLoop`` on the card against the same on
    the CPU, token for token; the ``tiny_lm`` ``SlotTrainLoop`` with a
    fail and a join on the card against the same on the CPU (alive
@@ -71,8 +74,19 @@ Phases, each printing its lines:
    against ``gather_mix``, ``data_ptr``, peak memory), the codec-free
    per-rank round's losses beside, and ``dequant_accumulate`` at the
    round's shape against its plain version and two PyTorch calls;
-10. the ``kernels`` JSON line, the card's name and power limit, and the
-   result line ``{"ok": true, "device": {...}}``.
+10. dfl: the paper's DFL engine, ``Engine.run`` over ``MLPTask`` at its
+   default width on MNIST's 28 x 28 input width (N = 50,890 f32), 100
+   clients dealt 3 label shards each: fedlay, fedlay-noconf, fedlay-sync
+   and Table III's fedavg, gaia, chord and dfl-dds, each aggregation one
+   ``weighted_mix`` launch, with its checks (launches equal to the
+   engine's aggregations, peak memory against its reckoning, fedlay's
+   accuracy rising, fedlay on the card against the same call on the
+   CPU), each method's wall time, accuracy, messages and suppressed
+   sends, where a fedlay run's host time goes, and ``weighted_mix`` at
+   the wake-up's shape and at a bandwidth shape against its plain
+   version, its bound and ``torch.matmul``;
+11. the ``kernels`` JSON line (all nine kernels), the card's name and
+   power limit, and the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result
 line.  Without CUDA, or outside a checkout, it exits 1 at once.
@@ -1976,6 +1990,249 @@ def phase_mesh(torch, card, mesh):
             "library_ms": lib_ms}
 
 
+# --------------------------------------------------------------------------
+# The paper's DFL engine
+# --------------------------------------------------------------------------
+
+DFL_CLIENTS, DFL_SHARDS, DFL_SPACES = 100, 3, 3
+#: fedlay's length: a client's first wake-up comes within one period (the
+#: slowest tier's is 2), its second one period later, so every client
+#: wakes at least twice by t = 4; the other methods get 2 rounds (the
+#: round engines are paced by that slowest period) or 4 time units
+DFL_TIME = 4.0
+DFL_METHODS = ("fedlay", "fedlay-noconf", "fedlay-sync", "fedavg", "gaia", "chord",
+               "dfl-dds")
+#: final models of fedlay, card against CPU, as a share of max|p|.  The
+#: two devices round their matmuls differently (about 1e-7 of max|p| read
+#: in the CPU tests, port against reference).  A ReLU pre-activation
+#: within that rounding of zero takes the other branch of the gradient on
+#: one device: about lr · |x| · |dL/dh| / batch ≈ 4e-5 in a column of w1,
+#: 1e-4 of max|p| (about 0.4); 1e-3 covers a few such.
+DFL_CARD_TOL = 1e-3
+
+
+def check_weighted_mix(torch):
+    """weighted_mix against weighted_mix_ref on the card, bit for bit:
+    f32 and bf16, K in {1, 2, 7, 15, 100}, N in {1, 127, 50,890, 2^24 + 3},
+    with no mask, a mask, and every model masked (zeros); the same models
+    as a row-strided view (on the 16-byte grid when N + 5 rounds so, the
+    scalar path otherwise), and an ``out`` that is a row of that view.
+    Both sum from zero in the order k = 0 … K−1 with each product rounded
+    to f32 (tolerance 0)."""
+    from repro_torch.kernels.ref import weighted_mix_ref
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for K in (1, 2, 7, 15, 100):
+            for N in (1, 127, 50_890, 2 ** 24 + 3):
+                pad = 8 - N % 8 if N % 2 else 5
+                big = torch.randn((K, N + pad), generator=gen, device="cuda").to(dtype)
+                view = big[:, :N]
+                models = view.contiguous()
+                w = torch.rand((K,), generator=gen, device="cuda")
+                some = (torch.rand((K,), generator=gen, device="cuda") < 0.5).float()
+                some[0] = 1.0
+                for mask in (None, some, torch.zeros_like(some)):
+                    out = weighted_mix(models, w, mask=mask)
+                    ref = weighted_mix_ref(models, w, mask)
+                    check(out.dtype == dtype and torch.equal(bits(out), bits(ref)),
+                          f"weighted_mix differs at K {K}, N {N}, {dtype}, mask "
+                          f"{None if mask is None else mask.tolist()[:4]}")
+                    cases += 1
+                check(not weighted_mix(models, w, mask=torch.zeros_like(some)).any(),
+                      "an all-masked weighted_mix is not zeros")
+                want = weighted_mix_ref(models, w)
+                check(torch.equal(bits(weighted_mix(view, w)), bits(want)),
+                      f"weighted_mix over a row-strided view differs at K {K}, N {N}")
+                check(weighted_mix(view, w, out=view[K // 2]).data_ptr()
+                      == view[K // 2].data_ptr() and torch.equal(bits(view[K // 2]),
+                                                                 bits(want)),
+                      f"weighted_mix into a row of its input differs at K {K}, N {N}")
+                cases += 2
+                del big, view, models
+    torch.cuda.synchronize()
+    print(f"kernels: weighted_mix on {cases} cases (f32 and bf16, K 1 to 100, N 1 to "
+          f"2^24 + 3, masked, all masked, row-strided, out a row of the input): bit "
+          f"for bit with its plain version (tolerance 0)")
+
+
+def dfl_reckoned(task, method, n, N) -> tuple:
+    """The device bytes a run of ``method`` adds to what is allocated
+    before it: the engine's buffers, plus one local step's working set
+    (its input copy, the gradient, the per-slice gradients autograd
+    scatters into flat buffers, lr·grad and the update: 8 flat vectors,
+    and the batch's rows and activations) and one evaluation's
+    activations (x_te·w1, + b1, relu, logits).  Returns (bytes, what)."""
+    from repro_torch.core.dfl import resolve_method
+    spec = resolve_method(method)
+    f = 4 * N
+    if spec.engine == "gossip":
+        topo = spec.topology(n, DFL_SPACES)
+        D = max(topo.degrees().values())
+        engine, what = n * (1 + D) * f + f, f"n (1 + D) N x 4 with D = {D}, + N x 4"
+    elif spec.engine == "fedavg":
+        engine, what = n * f + f, "n N x 4 local models + N x 4"
+    elif spec.engine == "gaia":
+        engine, what = n * f + 4 * f, "n N x 4 local models + 4 N x 4 regions"
+    else:
+        engine, what = 2 * n * f + f, "2 n N x 4 client buffers + N x 4"
+    n_test = len(task.data.y_test)
+    work = (8 * f + 4 * task.batch * (task.d_in + 2 * task.hidden + 2 * task.k)
+            + 4 * n_test * (3 * task.hidden + task.k))
+    return engine + work, what
+
+
+def phase_dfl(torch, card):
+    """The paper's DFL engine: Engine.run over MLPTask at its default width
+    on MNIST's 28 x 28 input width, 100 clients, for fedlay, its two
+    ablations and Table III's baselines, each aggregation one weighted_mix
+    launch; fedlay on the card against the same call on the CPU; where a
+    fedlay run's host time goes; weighted_mix alone at the wake-up's shape
+    and at a bandwidth shape."""
+    import numpy as np
+    from repro_torch.core.baselines import fedlay
+    from repro_torch.core.dfl import Engine
+    from repro_torch.data import mnist_like, shard_partition
+    from repro_torch.kernels.ref import weighted_mix_ref
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    from repro_torch.models.small import MLPTask
+    from repro_torch.obs.events import Telemetry
+
+    data = mnist_like(n_train=6000, n_test=1000, image=28, seed=0)
+    part = shard_partition(data.y_train, num_clients=DFL_CLIENTS,
+                           shards_per_client=DFL_SHARDS, seed=0)
+    task = MLPTask(data, part, device="cuda")
+    n, N = task.num_clients, task.num_params
+    check(N == 50_890, f"the MLP has {N} parameters, not 50,890")
+    mb = 4 * N
+    kw = dict(total_time=DFL_TIME, model_bytes=mb, num_spaces=DFL_SPACES, seed=0)
+    print(f"dfl: Engine.run over MLPTask (784-64-10, batch {task.batch}, "
+          f"{task.local_steps} local steps, lr {task.lr}) on mnist_like(6000, 1000, "
+          f"image 28), {n} clients x {DFL_SHARDS} label shards, L = {DFL_SPACES}, "
+          f"capacity periods (base 1), total time {DFL_TIME}; N = {N} f32 "
+          f"({mb / 1e3:.1f} KB)")
+
+    # a warm-up local step and evaluation, so that what is allocated before
+    # each run holds cuBLAS's workspaces: one for each thread that runs
+    # products, the caller's and autograd's
+    before = torch.cuda.memory_allocated()
+    task.evaluate(task.local_train(task.init_params(0), 0, seed=0))
+    torch.cuda.synchronize()
+    print(f"dfl: a warm-up local step and evaluation keep "
+          f"{(torch.cuda.memory_allocated() - before) / 2 ** 20:.3f} MiB allocated")
+    launches = 0
+    for method in DFL_METHODS:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reckoned, what = dfl_reckoned(task, method, n, N)
+        weighted_mix.launches = 0
+        t0 = time.perf_counter()
+        res = Engine().run(task, method, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        count = weighted_mix.launches
+        peak = torch.cuda.max_memory_allocated() - base
+        check(count == res.aggregations > 0,
+              f"{method}: weighted_mix launches {count} != the engine's "
+              f"{res.aggregations} aggregations")
+        check(peak <= reckoned * (1 + PEAK_MARGIN),
+              f"{method}: peak {peak} bytes over the reckoned {reckoned} x "
+              f"{1 + PEAK_MARGIN}")
+        launches += count
+        first, last = res.trace[0].mean_acc, res.trace[-1].mean_acc
+        print(f"dfl: {method}: {wall:.2f} s wall; mean accuracy {first:.4f} -> "
+              f"{last:.4f} at t = {res.trace[-1].time:g}; {res.messages_per_client:.2f} "
+              f"messages a client, {res.suppressed_sends} suppressed sends, "
+              f"{res.local_steps_per_client:.2f} local trainings a client; "
+              f"weighted_mix launches {count} = {res.aggregations} aggregations; peak "
+              f"{peak / 1e6:.3f} MB over the {base / 1e6:.3f} MB before, reckoned "
+              f"{reckoned / 1e6:.3f} MB ({what}, + one local step and one "
+              f"evaluation) ({card})")
+        if method == "fedlay":
+            check(last > first, f"fedlay's mean accuracy {last} did not rise above "
+                                f"{first}")
+            res.final_params = [p.cpu() for p in res.final_params]
+            fed = res
+        del res
+
+    # fedlay on the CPU: the same call, seed and initial vector
+    cpu = MLPTask(data, part, device="cpu")
+    t0 = time.perf_counter()
+    ref = Engine().run(cpu, "fedlay", **kw)
+    cpu_wall = time.perf_counter() - t0
+    for field in ("comm_bytes_per_client", "messages_per_client", "suppressed_sends",
+                  "local_steps_per_client", "aggregations"):
+        check(getattr(fed, field) == getattr(ref, field),
+              f"fedlay card and CPU differ in {field}: {getattr(fed, field)} / "
+              f"{getattr(ref, field)}")
+    check([r.time for r in fed.trace] == [r.time for r in ref.trace],
+          "fedlay card and CPU trace times differ")
+    acc_err = max(np.abs(a.accs - b.accs).max() for a, b in zip(fed.trace, ref.trace))
+    check(acc_err <= 2 / len(data.y_test), f"fedlay accuracies differ by {acc_err}")
+    scale = max(p.abs().max().item() for p in ref.final_params)
+    err = max((p - q).abs().max().item() for p, q in zip(fed.final_params, ref.final_params))
+    check(err <= DFL_CARD_TOL * scale, f"fedlay final models differ by {err} "
+                                       f"(max|p| {scale})")
+    print(f"dfl: fedlay card against CPU ({cpu_wall:.2f} s there): bytes, messages, "
+          f"local steps, suppressed sends, aggregations and {len(fed.trace)} trace "
+          f"times equal; accuracies within {acc_err:.4f} (limit 2/n_test); final "
+          f"models within {err:.3e} = {err / scale:.2e} x max|p| {scale:.4f} (limit "
+          f"{DFL_CARD_TOL:g} x max|p|)")
+    del fed, ref, cpu
+
+    # where one fedlay run's host time goes (host spans of the engine)
+    bus = Telemetry()
+    t0 = time.perf_counter()
+    res = Engine().run(task, "fedlay", telemetry=bus, **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    parts = {name: bus.histograms[f"engine.{name}.ms"] for name in
+             ("local_train", "fingerprint", "aggregate", "evaluate")}
+    spent = sum(h.total for h in parts.values())
+    print(f"breakdown: one fedlay run, {wall:.1f} ms host: " + "; ".join(
+        f"{name} {h.total:.1f} ms ({100 * h.total / wall:.1f} %, {h.count} x "
+        f"{h.mean:.3f} ms)" for name, h in parts.items())
+        + f"; the rest (sends, heap, weights) {wall - spent:.1f} ms ({card})")
+    del res
+
+    # weighted_mix alone: the wake-up's shape (1 + D, N) and a bandwidth shape
+    K = 1 + max(fedlay(n, DFL_SPACES).degrees().values())
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    timed = {}
+    for label, (k, cols), reps in (("wake-up", (K, N), 200), ("bandwidth", (7, 2 ** 26), 20)):
+        block = torch.randn((k, cols), generator=gen, device="cuda")
+        w = torch.rand((k,), generator=gen, device="cuda")
+        w /= w.sum()
+        out = torch.empty(cols, device="cuda")
+        ref = weighted_mix_ref(block, w)
+        got = weighted_mix(block, w, out=out)
+        check(torch.equal(bits(got), bits(ref)), f"weighted_mix differs at ({k}, {cols})")
+        err = (got - ref).abs().max().item()
+        ms = device_ms(torch, [lambda: weighted_mix(block, w, out=out)], reps)
+        plain_ms = device_ms(torch, [lambda: weighted_mix_ref(block, w)], max(1, reps // 10))
+        lib_ms = device_ms(torch, [lambda: torch.matmul(w, block)], reps)
+        t_b = (k + 1) * cols * 4 / HBM_BYTES_PER_S
+        t_o = 2 * k * cols / F32_FLOPS_PER_S
+        bound_ms, bound_by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+        timed[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=lib_ms)
+        print(f"dfl: weighted_mix f32 at the {label} shape K = {k}, N = {cols}: bit "
+              f"for bit with its plain version; device time per call: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {(k + 1) * cols * 4 / 1e6:.1f} MB), torch.matmul(w, models) "
+              f"{lib_ms:.4f} ms ({card})")
+        del block, out, ref, got
+    main = timed["wake-up"]
+    print(f"dfl: weighted_mix launches over the seven methods' card runs: {launches}")
+    return {"name": "weighted_mix", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/weighted_mix.cu",
+            "replaces": "src/repro/kernels/weighted_mix.py:88",
+            "launches": launches, **main}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2020,6 +2277,7 @@ def main() -> int:
         check_wire_kernels(torch)
         check_dequant_accumulate(torch)
         check_ssd_scan(torch)
+        check_weighted_mix(torch)
         phase_small(torch)
         small_train(torch)
         for codec in WIRE_CODECS_RUN:
@@ -2042,9 +2300,12 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
         mesh_entry = phase_mesh(torch, card, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dfl_entry = phase_dfl(torch, card)
     finally:
         mesh.close()
-    print(json.dumps({"kernels": [serve_entry, train_entry] + [
+    print(json.dumps({"kernels": [dfl_entry, serve_entry, train_entry] + [
         wire[k] for k in ("mix_accumulate", "quantize_block", "dequantize_block")]
         + [mesh_entry, wire["gather_mix_int8"], ssm_entry]}))
     print(card)

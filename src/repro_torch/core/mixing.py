@@ -1,9 +1,10 @@
 """Mixing schedules: the FedLay overlay as 2L static ring rotations.
 
-A copy of ``repro/core/mixing.py``, trimmed to what the port's mixers
-call (the reference's simulation-path matrices wait for ROADMAP.md
-Queue 1 item 3).  Each virtual ring space is a cyclic order over the
-client slots, so one space = one source permutation in each direction.
+A copy of ``repro/core/mixing.py``.  The simulation path
+(:class:`repro_torch.core.dfl.Engine`'s semantics as one matrix) is
+:func:`confidence_mixing_matrix` and :func:`gossip_step`.  Each virtual
+ring space is a cyclic order over the client slots, so one space = one
+source permutation in each direction.
 Confidence weights and duplicate-adjacency masks (a peer adjacent in
 several spaces is counted once) are precomputed host-side into dense
 per-slot weight tables.  :func:`masked_mixing_matrix` is the dense
@@ -27,7 +28,38 @@ import numpy as np
 
 from .coords import NodeAddress, coordinate
 from .mep import ClientProfile, aggregation_weights
-from .topology import fedlay_topology, ring_orders
+from .topology import Topology, fedlay_topology, ring_orders
+
+
+# --------------------------------------------------------------------------
+# Confidence-weighted mixing matrix (simulation path)
+# --------------------------------------------------------------------------
+
+def confidence_mixing_matrix(topology: Topology,
+                             profiles: Dict[int, ClientProfile],
+                             alpha_d: float = 0.5, alpha_c: float = 0.5,
+                             confidence_weighted: bool = True) -> np.ndarray:
+    """Row i = MEP aggregation weights of client i over {i} ∪ N_i.
+
+    Row-stochastic by construction.  With ``confidence_weighted=False``
+    this is the DFedAvg simple average (the paper's ablation)."""
+    index = {u: k for k, u in enumerate(topology.nodes)}
+    n = topology.n
+    W = np.zeros((n, n), dtype=np.float64)
+    nbrs = topology.neighbor_map()
+    for u in topology.nodes:
+        others = nbrs[u]
+        w = aggregation_weights(profiles[u], [profiles[v] for v in others],
+                                alpha_d, alpha_c, confidence_weighted)
+        W[index[u], index[u]] = w[0]
+        for k, v in enumerate(others):
+            W[index[u], index[v]] = w[k + 1]
+    return W
+
+
+def gossip_step(stacked_models: np.ndarray, W: np.ndarray) -> np.ndarray:
+    """One synchronous mixing round: X ← W·X for (n, dim) stacked models."""
+    return W @ stacked_models
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

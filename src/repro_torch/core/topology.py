@@ -1,6 +1,6 @@
 """FedLay overlay topology (paper §II-C) and the Definition-1 correctness test.
 
-A copy of ``repro/core/topology.py``, trimmed to what the DFL round calls.
+A copy of ``repro/core/topology.py``.
 
 A FedLay overlay over a node set is fully determined by the nodes'
 virtual coordinates: in each of the L ring spaces every node is adjacent
@@ -20,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, FrozenSet, Iterable, List, Sequence, Tuple
 
+import numpy as np
+
 from .coords import NodeAddress
 
 
@@ -31,12 +33,52 @@ class Topology:
     edges: FrozenSet[Tuple[int, int]]  # canonical (min, max) pairs
     name: str = "graph"
 
+    # ---- basic graph API -------------------------------------------------
+    @property
+    def n(self) -> int:
+        return len(self.nodes)
+
+    def neighbors(self, u: int) -> List[int]:
+        out = []
+        for a, b in self.edges:
+            if a == u:
+                out.append(b)
+            elif b == u:
+                out.append(a)
+        return sorted(out)
+
     def neighbor_map(self) -> Dict[int, List[int]]:
         nbr: Dict[int, List[int]] = {u: [] for u in self.nodes}
         for a, b in self.edges:
             nbr[a].append(b)
             nbr[b].append(a)
         return {u: sorted(v) for u, v in nbr.items()}
+
+    def degrees(self) -> Dict[int, int]:
+        return {u: len(v) for u, v in self.neighbor_map().items()}
+
+    def adjacency(self) -> np.ndarray:
+        """Dense 0/1 adjacency matrix in ``self.nodes`` order."""
+        index = {u: i for i, u in enumerate(self.nodes)}
+        A = np.zeros((self.n, self.n), dtype=np.float64)
+        for a, b in self.edges:
+            A[index[a], index[b]] = 1.0
+            A[index[b], index[a]] = 1.0
+        return A
+
+    def is_connected(self) -> bool:
+        if self.n == 0:
+            return True
+        nbr = self.neighbor_map()
+        seen = {self.nodes[0]}
+        stack = [self.nodes[0]]
+        while stack:
+            u = stack.pop()
+            for v in nbr[u]:
+                if v not in seen:
+                    seen.add(v)
+                    stack.append(v)
+        return len(seen) == self.n
 
 
 def make_edge(u: int, v: int) -> Tuple[int, int]:

@@ -28,7 +28,7 @@ IEEE_FLAGS = ("-ftz=false", "-prec-div=true", "-prec-sqrt=true")
 #: Every kernel source of the port, by name (``csrc/<name>.cu``).
 SOURCES = ("flash_decode", "gather_mix", "mix_accumulate", "quantize_block",
            "dequantize_block", "dequant_accumulate", "gather_mix_int8",
-           "ssd_scan")
+           "ssd_scan", "weighted_mix")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

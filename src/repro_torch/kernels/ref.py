@@ -1,15 +1,15 @@
 """Plain-PyTorch versions of the port's kernels: what the CPU tests run,
 and what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
-Counterpart of ``repro/kernels/ref.py``.  The oracles of the ported
-kernels (``flash_decode``, ``gather_mix``, ``mix_accumulate`` and the
-wire codec's ``quantize_block``, ``dequantize_block``,
-``dequant_accumulate`` and ``gather_mix_int8``), and the Mamba2 SSD
-scan's (:func:`ssd_scan_ref`, the sequential recurrence, and
-:func:`ssd_chunked_ref`, the chunked dual form ``ssd_scan``'s kernel is
-held to) are here, with :func:`round_matrix`, which the two gathers run
-outside their kernels, and :func:`padded_width`; ``weighted_mix``'s
-arrives with its kernel (ROADMAP.md, Queue 2).
+Counterpart of ``repro/kernels/ref.py``.  The oracles of all nine
+kernels (``weighted_mix``, ``flash_decode``, ``gather_mix``,
+``mix_accumulate`` and the wire codec's ``quantize_block``,
+``dequantize_block``, ``dequant_accumulate`` and ``gather_mix_int8``),
+and the Mamba2 SSD scan's (:func:`ssd_scan_ref`, the sequential
+recurrence, and :func:`ssd_chunked_ref`, the chunked dual form
+``ssd_scan``'s kernel is held to) are here, with :func:`round_matrix`,
+which the two gathers run outside their kernels, :func:`masked_weights`,
+which ``weighted_mix`` runs outside its kernel, and :func:`padded_width`.
 """
 
 from __future__ import annotations
@@ -52,6 +52,37 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     idx = torch.arange(L, device=q.device)
     return decode_attention_ref(q, k_cache, v_cache,
                                 idx[None, :] <= pos[:, None])
+
+
+def masked_weights(weights: torch.Tensor, mask=None) -> torch.Tensor:
+    """The f32 weights ``weighted_mix`` sums with: ``weights`` itself, or
+    with a (K,) ``mask`` the surviving weights renormalized,
+    ``w·m / Σ(w·m)``, and all zeros when nothing survives.  K scalar
+    operations on the weights' device, with no read back to the host
+    (``repro/kernels/weighted_mix.py:110-114``)."""
+    w = weights.float()
+    if mask is None:
+        return w
+    eff = w * mask.to(device=w.device, dtype=torch.float32)
+    total = eff.sum()
+    return torch.where(total > 0, eff / torch.where(total > 0, total, 1.0),
+                       torch.zeros_like(eff))
+
+
+def weighted_mix_ref(models: torch.Tensor, weights: torch.Tensor,
+                     mask=None) -> torch.Tensor:
+    """models (K, N), weights (K,) → Σ_k w_k·models[k] as (N,) in
+    ``models.dtype``, with f32 math (``repro/kernels/ref.py:weighted_mix_ref``).
+
+    The sum runs in the order k = 0 … K−1 from zero, each product rounded
+    to f32 and then added, which is the CUDA kernel's order and rounding,
+    so on the card the two agree bit for bit.  With ``mask``, the weights
+    are :func:`masked_weights`'s (all masked → zeros)."""
+    w = masked_weights(weights, mask)
+    acc = torch.zeros(models.shape[1], dtype=torch.float32, device=models.device)
+    for k in range(models.shape[0]):
+        acc = acc + w[k] * models[k].float()
+    return acc.to(models.dtype)
 
 
 def round_matrix(C: int, srcs, weights: torch.Tensor) -> torch.Tensor:

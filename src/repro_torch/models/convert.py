@@ -1,6 +1,10 @@
 """Carry the reference's parameters over into the port's model, and map
 a parameter tree in the reference's layout onto the model's state dict.
 
+:func:`task_params_from_jax` carries a flat vector of the reference's
+DFL tasks (``repro.models.small``) over; the port's tasks
+(:mod:`repro_torch.models.small`) keep the same flat layout.
+
 :func:`params_from_jax` takes the tree ``repro.models.model.init_params``
 returns, with every leaf as a numpy array (the caller converts; this
 module imports no JAX).  Its layer leaves are stacked per segment:
@@ -82,3 +86,11 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
                              f"parameter {tuple(own[name].shape)}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def task_params_from_jax(flat, device="cpu") -> torch.Tensor:
+    """A reference task's flat parameter vector (``MLPTask.init_params``,
+    a numpy array) as a flat f32 tensor on ``device``.  The port's
+    :class:`repro_torch.models.small.MLPTask` keeps the reference's flat
+    layout, so the vector means the same model in both packages."""
+    return torch.from_numpy(np.asarray(flat, np.float32).copy()).to(device)

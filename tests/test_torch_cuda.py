@@ -1,9 +1,10 @@
 """The port on the card: the CUDA ``flash_decode``, ``gather_mix``,
 ``mix_accumulate``, ``quantize_block``, ``dequantize_block``,
-``gather_mix_int8``, ``dequant_accumulate`` and ``ssd_scan`` kernels
-against their plain PyTorch versions, and the serving and slot training
-loops (codec-free and under the block codecs) and the Mamba2 prefill on
-the card against the same on the CPU.  Every test here needs an NVIDIA
+``gather_mix_int8``, ``dequant_accumulate``, ``ssd_scan`` and
+``weighted_mix`` kernels against their plain PyTorch versions, and the
+serving and slot training loops (codec-free and under the block codecs),
+the Mamba2 prefill and the DFL engine on the card against the same on
+the CPU.  Every test here needs an NVIDIA
 GPU and skips without one; the file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
 
@@ -788,3 +789,114 @@ def test_mamba2_run_batch_card_matches_cpu(cuda):
     res = run_batch(cfg, gpu, argparse.Namespace(batch=2, prompt_len=33, gen=6),
                     np.random.default_rng(0))
     assert res["tok_s"] > 0
+
+
+# --------------------------------------------------------------------------
+# weighted_mix and the DFL engine
+# --------------------------------------------------------------------------
+
+WMIX_SHAPES = [(1, 1), (2, 127), (7, 50_890), (15, 4099), (100, 1000), (3, 2 ** 20 + 3)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("masked", [None, "some", "all"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", WMIX_SHAPES)
+def test_weighted_mix_matches_plain_bit_for_bit(cuda, K, N, dtype, masked):
+    """The kernel against weighted_mix_ref on the card, bit for bit: both
+    sum from zero in the order k = 0 … K−1 with each product rounded to
+    f32, and both renormalize a mask with the same device operations; an
+    all-masked stack is zeros."""
+    from repro_torch.kernels.ref import weighted_mix_ref
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    gen = torch.Generator(device=cuda).manual_seed(K * 7919 + N)
+    models = _rand(gen, K, N, dtype=dtype)
+    w = torch.rand((K,), generator=gen, device=cuda)
+    mask = None
+    if masked is not None:
+        mask = (torch.rand((K,), generator=gen, device=cuda) < 0.5).float()
+        mask[0] = 1.0
+        if masked == "all":
+            mask.zero_()
+    before = weighted_mix.launches
+    out = weighted_mix(models, w, mask=mask)
+    torch.cuda.synchronize()
+    assert weighted_mix.launches == before + 1
+    ref = weighted_mix_ref(models, w, mask)
+    assert out.dtype == dtype and out.shape == (N,)
+    assert torch.equal(_bits(out), _bits(ref))
+    if masked == "all":
+        assert not out.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weighted_mix_strided_views_and_aliased_out(cuda, dtype):
+    """Row-strided views on the 16-byte grid (the vector path, with and
+    without a scalar tail), views off it (the scalar path) and an ``out``
+    that is one of the rows all give the contiguous copy's result bit for
+    bit."""
+    from repro_torch.kernels.ref import weighted_mix_ref
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    big = _rand(gen, 12, 3, 5008, dtype=dtype)
+    w = torch.rand((6,), generator=gen, device=cuda)
+    for view in (big[::2, 1], big[::2, 1, :5005], big[1::2, 2, 1:],
+                 big[:6, 0, 3:4003]):
+        want = weighted_mix_ref(view.contiguous(), w)
+        assert torch.equal(_bits(weighted_mix(view, w)), _bits(want))
+        out = weighted_mix(view, w, out=view[2])
+        torch.cuda.synchronize()
+        assert out.data_ptr() == view[2].data_ptr()
+        assert torch.equal(_bits(view[2]), _bits(want))
+
+
+def test_weighted_mix_rejects_bad_layouts(cuda):
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    m = torch.zeros((3, 64), device=cuda)
+    w = torch.ones((3,), device=cuda)
+    with pytest.raises(ValueError, match="at least one model"):
+        weighted_mix(torch.zeros((0, 64), device=cuda), torch.ones((0,), device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        weighted_mix(m.half(), w)
+    with pytest.raises(ValueError, match="adjacent columns"):
+        weighted_mix(torch.zeros((64, 3), device=cuda).t(), w)
+    with pytest.raises(ValueError, match="weights on cpu"):
+        weighted_mix(m, w.cpu())
+    with pytest.raises(ValueError, match="out must be"):
+        weighted_mix(m, w, out=torch.zeros((64,), device=cuda, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("method", ["fedlay", "fedavg", "gaia", "dfl-dds"])
+def test_engine_card_matches_cpu(cuda, method):
+    """A small Engine.run on the card against the same call on the CPU
+    from the same initial vector: equal counters and trace times, trace
+    accuracies within 2/n_test, final models within 1e-5 x max|p| (cuBLAS
+    and the CPU's matmuls round differently), and one weighted_mix launch
+    per aggregation on the card and none on the CPU."""
+    from repro_torch.core.dfl import Engine
+    from repro_torch.data import mnist_like, shard_partition
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    from repro_torch.models.small import MLPTask
+    data = mnist_like(n_train=600, n_test=200, image=12, seed=0)
+    part = shard_partition(data.y_train, num_clients=10, shards_per_client=3, seed=0)
+    runs = []
+    for device in ("cpu", cuda):
+        task = MLPTask(data, part, hidden=16, local_steps=2, batch=16, device=device)
+        before = weighted_mix.launches
+        res = Engine().run(task, method, total_time=4.0, model_bytes=1000, seed=0)
+        runs.append((res, weighted_mix.launches - before))
+    (rc, lc), (rg, lg) = runs
+    assert lc == 0 and lg == rg.aggregations == rc.aggregations > 0
+    for field in ("comm_bytes_per_client", "messages_per_client", "suppressed_sends",
+                  "local_steps_per_client"):
+        assert getattr(rg, field) == getattr(rc, field), field
+    assert [r.time for r in rg.trace] == [r.time for r in rc.trace]
+    for a, b in zip(rg.trace, rc.trace):
+        assert np.abs(a.accs - b.accs).max() <= 2 / 200
+    scale = max(p.abs().max().item() for p in rc.final_params)
+    for p, q in zip(rg.final_params, rc.final_params):
+        assert p.device.type == "cuda"
+        assert (p.cpu() - q).abs().max().item() <= 1e-5 * scale

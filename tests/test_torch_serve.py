@@ -222,7 +222,9 @@ def test_no_file_of_the_port_imports_jax_or_repro():
                    "runtime/loop.py", "runtime/masked.py", "launch/steps.py",
                    "wire/__init__.py", "wire/codec.py", "kernels/mix_accumulate.py",
                    "kernels/wire_codec.py", "launch/mesh.py", "dist/sharding.py",
-                   "kernels/ssd_scan.py", "models/ssm.py"):
+                   "kernels/ssd_scan.py", "models/ssm.py", "kernels/weighted_mix.py",
+                   "core/dfl.py", "core/baselines.py", "core/metrics.py",
+                   "data/synthetic.py", "data/noniid.py", "models/small.py"):
         assert f"src/repro_torch/{module}" in names, module
     for path in files:
         roots = set(_imported_roots(path))
