@@ -83,8 +83,9 @@ Phases, each printing its lines:
    accuracy rising, fedlay on the card against the same call on the
    CPU), each method's wall time, accuracy, messages and suppressed
    sends, where a fedlay run's host time goes, and ``weighted_mix`` at
-   the wake-up's shape and at a bandwidth shape against its plain
-   version, its bound and ``torch.matmul``;
+   the wake-up's shape (in the engine's layout and with rows padded to
+   16 bytes) and at a bandwidth shape against its plain version, its
+   bound and ``torch.matmul``;
 11. the ``kernels`` JSON line (all nine kernels), the card's name and
    power limit, and the result line ``{"ok": true, "device": {...}}``.
 
@@ -2002,13 +2003,11 @@ DFL_CLIENTS, DFL_SHARDS, DFL_SPACES = 100, 3, 3
 DFL_TIME = 4.0
 DFL_METHODS = ("fedlay", "fedlay-noconf", "fedlay-sync", "fedavg", "gaia", "chord",
                "dfl-dds")
-#: final models of fedlay, card against CPU, as a share of max|p|.  The
-#: two devices round their matmuls differently (about 1e-7 of max|p| read
-#: in the CPU tests, port against reference).  A ReLU pre-activation
-#: within that rounding of zero takes the other branch of the gradient on
-#: one device: about lr · |x| · |dL/dh| / batch ≈ 4e-5 in a column of w1,
-#: 1e-4 of max|p| (about 0.4); 1e-3 covers a few such.
-DFL_CARD_TOL = 1e-3
+#: final models of fedlay, card against CPU, as a share of max|p|: cuBLAS
+#: and the CPU round their matmuls differently, and the difference grows
+#: over the run's local steps.  Set from the readings: 1.70e-05 in both
+#: H100 runs of this phase (NVIDIA H100 80GB HBM3, 700 W), so about 6x room.
+DFL_CARD_TOL = 1e-4
 
 
 def check_weighted_mix(torch):
@@ -2198,12 +2197,18 @@ def phase_dfl(torch, card):
         + f"; the rest (sends, heap, weights) {wall - spent:.1f} ms ({card})")
     del res
 
-    # weighted_mix alone: the wake-up's shape (1 + D, N) and a bandwidth shape
+    # weighted_mix alone: the wake-up's (1 + D, N) block as the engine lays
+    # it out (rows 50,890 f32 apart, 8 bytes off the 16-byte grid: the
+    # kernel's scalar path), the same block with rows padded to 16 bytes
+    # (its vector path), and a bandwidth shape
     K = 1 + max(fedlay(n, DFL_SPACES).degrees().values())
     gen = torch.Generator(device="cuda").manual_seed(23)
     timed = {}
-    for label, (k, cols), reps in (("wake-up", (K, N), 200), ("bandwidth", (7, 2 ** 26), 20)):
-        block = torch.randn((k, cols), generator=gen, device="cuda")
+    for label, (k, cols, width), reps in (
+            ("wake-up", (K, N, N), 200),
+            ("padded wake-up", (K, N, -(-N // 4) * 4), 200),
+            ("bandwidth", (7, 2 ** 26, 2 ** 26), 20)):
+        block = torch.randn((k, width), generator=gen, device="cuda")[:, :cols]
         w = torch.rand((k,), generator=gen, device="cuda")
         w /= w.sum()
         out = torch.empty(cols, device="cuda")
@@ -2219,8 +2224,9 @@ def phase_dfl(torch, card):
         bound_ms, bound_by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
         timed[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=lib_ms)
-        print(f"dfl: weighted_mix f32 at the {label} shape K = {k}, N = {cols}: bit "
-              f"for bit with its plain version; device time per call: kernel "
+        print(f"dfl: weighted_mix f32 at the {label} shape K = {k}, N = {cols}, row "
+              f"stride {width}: bit for bit with its plain version; device time per "
+              f"call: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}, {(k + 1) * cols * 4 / 1e6:.1f} MB), torch.matmul(w, models) "
               f"{lib_ms:.4f} ms ({card})")
