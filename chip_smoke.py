@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, the result line last
+    python3 chip_smoke.py --ssd    # ssd_scan alone: build, checks, timing
 
 Run from the root of a checkout; it needs one CUDA card and builds the
 port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` first.
@@ -26,7 +27,8 @@ Phases, each printing its lines:
    ``dequant_accumulate`` bit for bit (f32 and bf16 acc, ragged N, the
    init form, blocks 128, 64 and 32, B from 1 to 65535, in place);
    ``ssd_scan``, y and the final state, f32 and bf16, S a multiple of
-   256 and S that makes the chunk halve, B 1-4, H 1-32, P and N 32-128;
+   256 and S that makes the chunk halve, B 1-4, H 1-32, P and N 32-128,
+   64 chunks at Mamba2's heads, H 7;
    ``weighted_mix`` bit for bit, f32 and bf16, K 1-100, N 1 to 2^24 + 3,
    masked, all masked, row-strided, out a row of the input;
 4. small: the ``tiny_lm`` ``ServeLoop`` on the card against the same on
@@ -50,7 +52,8 @@ Phases, each printing its lines:
    kernel against the same with the plain scan (logits and the decode
    states), a breakdown of one prefill and one decode tick, and the
    kernel alone at the slice's shape against its plain version and its
-   bound;
+   bound (20 calls, their median and min, the SM clock before and after,
+   and each of the kernel's three launches over 5 profiled calls);
 7. train: the DFL round, ``SlotTrainLoop`` over Llama-3.2-3B at full
    width with its depth cut to what fits (8 slots, 7 live, a fail and a
    join, sgd, fedlay mixing through ``gather_mix``), with its checks,
@@ -109,6 +112,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+#: f32 products in split TF32 on the tensor cores: three TF32 products
+#: (495 TFLOP/s dense on the H100 SXM) for each f32 one
+SPLIT_TF32_FLOPS_PER_S = 495e12 / 3
 SWEEP = [(1, 4, 1, 64, 256, 255), (2, 8, 2, 64, 700, 450),
          (2, 16, 2, 128, 1024, 100), (1, 8, 8, 64, 512, 511),
          (3, 8, 4, 32, 384, 0)]
@@ -132,12 +138,16 @@ def decode_tol(ref) -> dict:
     return dict(rtol=1e-2, atol=1e-2 * ref.float().abs().max().item())
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
+    """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
 
 
 def device_ms(torch, calls, reps: int) -> float:
@@ -461,11 +471,14 @@ def phase_slice(torch, F, card):
 # --------------------------------------------------------------------------
 
 #: (B, S, H, P, N, chunk): S a multiple of 256 and S that makes Q halve
-#: (96, 7, 300 at chunk 16), B 1 to 4, H 1 to 32, P and N 32 to 128
+#: (96, 7, 300 at chunk 16), B 1 to 4, H 1 to 32, P and N 32 to 128; 64
+#: chunks at Mamba2's heads (A down to -32: the state passed along a long
+#: chain), and an H of 7 (no multiple of the kernel's groups of 2 and 4 heads)
 SSD_CASES = [(1, 256, 1, 64, 64, 256), (2, 512, 4, 64, 128, 256),
              (1, 96, 3, 128, 64, 256), (4, 7, 32, 64, 128, 256),
              (3, 768, 2, 128, 128, 256), (4, 1024, 32, 64, 128, 256),
-             (2, 300, 5, 32, 32, 16)]
+             (2, 300, 5, 32, 32, 16), (1, 16384, 32, 64, 128, 256),
+             (2, 512, 7, 64, 128, 256)]
 #: ssd_scan's per-head limit, in units of 2^-24·cs_h·max|ref_h| (see
 #: ssd_assert_close; tests/test_torch_cuda.py:assert_ssd_close uses the same)
 SSD_CS_FACTOR = 8
@@ -548,16 +561,104 @@ def check_ssd_scan(torch):
 
 def ssd_bound(B, S, H, P, N, Q, itemsize):
     """Least time for the scan on these shapes: x, dt, A, B and C read
-    once, y and the final state written once, against the dual form's
-    f32 operations per (b, h, chunk): 2·N·Q(Q+1)/2 for the causal C·Bᵀ,
-    2·P·Q(Q+1)/2 for its product with dt·x, 2·Q·N·P for the inter-chunk
-    term and 2·Q·N·P for the state update."""
+    once, y and the final state written once, against the causal dual
+    form's operations: 2·N·Q(Q+1)/2 for C·Bᵀ once per (b, chunk), since
+    every head shares it (single group), and per (b, h, chunk) 2·P·Q(Q+1)/2
+    for its product with dt·x, 2·Q·N·P for the inter-chunk term and 2·Q·N·P
+    for the state update, at the split-TF32 rate of the tensor cores that
+    the kernel runs them on.  Also returns the per-head bound, C·Bᵀ once
+    per head at the f32 rate of the CUDA cores, as the kernel's earlier
+    rows of PERF.md count it."""
     nbytes = (2 * B * S * H * P * itemsize + 4 * B * S * H + 4 * H
               + 2 * B * S * N * itemsize + 4 * B * H * P * N)
-    tri = Q * (Q + 1) // 2
-    ops = B * H * (S // Q) * (2 * tri * (N + P) + 4 * Q * N * P)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), ops
+    tri, nc = Q * (Q + 1) // 2, S // Q
+    ops = B * nc * 2 * tri * N + B * H * nc * (2 * tri * P + 4 * Q * N * P)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SPLIT_TF32_FLOPS_PER_S
+    per_head = B * H * nc * (2 * tri * (N + P) + 4 * Q * N * P)
+    old_ms = max(t_b, per_head / F32_FLOPS_PER_S) * 1e3
+    return (max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), ops,
+            old_ms, per_head)
+
+
+def ssd_passes(torch, call, calls: int = 5) -> dict:
+    """Device ms of each of ssd_scan's three launches: the median over
+    ``calls`` profiled calls, each kernel event taken alone (late in a long
+    run the trace can drop a window's first kernels, which a sum would
+    hide)."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(200_000_000)
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for name in ("chunk_state", "state_pass", "chunk_scan"):
+        us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name)
+        check(len(us) > 0, f"the profiler saw no {name} launch")
+        out[name] = us[len(us) // 2] / 1e3
+    return out
+
+
+def time_ssd_scan(torch, card, B, S, H, P, N, chunk, reps=20):
+    """ssd_scan f32 alone at one shape, on the mixer's ranges: held to its
+    plain version (ssd_assert_close), then ``reps`` calls each timed by its
+    own CUDA events (the inputs, over 1 GB at the slice's shape, find the
+    50 MB L2 cold), with nvidia-smi's SM clock read before and after; the
+    plain version once; each of the three launches' median over 5 profiled
+    calls.
+    Returns the kernel's row of the ``kernels`` line
+    (``ms`` the median call) with ``launches`` left for the caller."""
+    from repro_torch.kernels.ref import chunk_len, ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    Q = chunk_len(S, chunk)
+    x, dt, A, Bm, Cm = ssd_inputs(torch, torch.Generator(device="cuda").manual_seed(6),
+                                  B, S, H, P, N, torch.float32)
+    out = torch.empty((B, H, P, N), device="cuda")
+    y, _ = ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out)
+    ref, final = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    rel = (ssd_assert_close(torch, y, ref, dt, A, Q, 2),
+           ssd_assert_close(torch, out, final, dt, A, Q, 1))
+    err = max((y - ref).abs().max().item(), (out - final).abs().max().item())
+    del ref, final, y
+    clock_before = smi("clocks.sm,power.draw,temperature.gpu")
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    clock_after = smi("clocks.sm,power.draw,temperature.gpu")
+    passes = ssd_passes(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out))
+    times.sort()
+    ms, ms_min = times[len(times) // 2], times[0]
+    plain_ms = device_ms(torch, [lambda: ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)], 1)
+    bound_ms, bound_by, ops, old_ms, per_head = ssd_bound(B, S, H, P, N, Q, 4)
+    print(f"ssm: ssd_scan f32 at x ({B}, {S}, {H}, {P}), N {N}, Q {Q}: device time "
+          f"per call over {reps} calls: median {ms:.3f} ms, min {ms_min:.3f}, max "
+          f"{times[-1]:.3f} ({ops / ms / 1e9:.1f} TFLOP/s of the dual form's "
+          f"{ops / 1e9:.1f} GFLOP, C·Bᵀ once per (b, chunk)); plain {plain_ms:.3f} ms; "
+          f"bound {bound_ms:.3f} ms ({bound_by}, split TF32 at "
+          f"{SPLIT_TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {100 * bound_ms / ms:.1f} % of it), "
+          f"per-head count {old_ms:.3f} ms ({per_head / 1e9:.1f} GFLOP at "
+          f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {100 * old_ms / ms:.1f} %); library none; "
+          f"max abs err {err:.3e} (y {rel[0][0]:.3e}, state {rel[1][0]:.3e} of "
+          f"max|ref|; per head {rel[0][1]:.2f} and {rel[1][1]:.2f} x "
+          f"2^-24·cs_h·max|ref_h|); SM clock, power, temperature before "
+          f"[{clock_before}], after [{clock_after}] ({card})")
+    print("ssm: ssd_scan's three launches, median device ms over 5 profiled calls: "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in passes.items()))
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:76",
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def ssm_reckoned(cfg, B, S) -> tuple:
@@ -588,7 +689,7 @@ def phase_ssm(torch, card):
     import numpy as np
     from repro_torch.configs import REGISTRY
     from repro_torch.kernels import ssd_scan as scan_mod
-    from repro_torch.kernels.ref import chunk_len, ssd_chunked_ref
+    from repro_torch.kernels.ref import ssd_chunked_ref
     from repro_torch.launch.serve import run_batch
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.model import (LanguageModel, decode_step, init_cache,
@@ -703,32 +804,10 @@ def phase_ssm(torch, card):
     torch.cuda.empty_cache()
 
     # the kernel alone at the slice's shape
-    B, S, H, P, N = SSM_BATCH, SSM_PROMPT, s.nheads(cfg.d_model), s.headdim, s.d_state
-    Q = chunk_len(S, s.chunk)
-    x, dt, A, Bm, Cm = ssd_inputs(torch, torch.Generator(device="cuda").manual_seed(6),
-                                  B, S, H, P, N, torch.float32)
-    out = torch.empty((B, H, P, N), device="cuda")
-    y, _ = ssd_scan(x, dt, A, Bm, Cm, s.chunk, state_out=out)
-    ref, final = ssd_chunked_ref(x, dt, A, Bm, Cm, s.chunk)
-    torch.cuda.synchronize()
-    rel = (ssd_assert_close(torch, y, ref, dt, A, Q, 2),
-           ssd_assert_close(torch, out, final, dt, A, Q, 1))
-    err = max((y - ref).abs().max().item(), (out - final).abs().max().item())
-    del ref, final
-    ms = device_ms(torch, [lambda: ssd_scan(x, dt, A, Bm, Cm, s.chunk, state_out=out)], 5)
-    plain_ms = device_ms(torch, [lambda: ssd_chunked_ref(x, dt, A, Bm, Cm, s.chunk)], 1)
-    bound_ms, bound_by, ops = ssd_bound(B, S, H, P, N, Q, 4)
-    print(f"ssm: ssd_scan f32 at the slice's shape x ({B}, {S}, {H}, {P}), N {N}, Q {Q}: "
-          f"device time per call: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s of "
-          f"the dual form's {ops / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}), library none; max abs err {err:.3e} "
-          f"(y {rel[0][0]:.3e}, state {rel[1][0]:.3e} of max|ref|; per head "
-          f"{rel[0][1]:.2f} and {rel[1][1]:.2f} x 2^-24·cs_h·max|ref_h|) ({card})")
-    return {"name": "ssd_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan.py:76",
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    entry = time_ssd_scan(torch, card, SSM_BATCH, SSM_PROMPT, s.nheads(cfg.d_model),
+                          s.headdim, s.d_state, s.chunk)
+    entry["launches"] = launches
+    return entry
 
 
 # --------------------------------------------------------------------------
@@ -2240,6 +2319,12 @@ def phase_dfl(torch, card):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ssd", action="store_true",
+                        help="build ssd_scan alone, hold it to its plain version over "
+                             "SSD_CASES and time it at the ssm phase's shape; no "
+                             "other phase and no result line")
+    opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs one NVIDIA "
@@ -2260,14 +2345,23 @@ def main() -> int:
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"allow_tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}; card {card}")
+    sources = ("ssd_scan",) if opts.ssd else SOURCES
     t0 = time.perf_counter()
-    logs = build(SOURCES, verbose=True)
-    print(f"build: {', '.join(f'{n}.cu' for n in SOURCES)} for sm_90a, "
+    logs = build(sources, verbose=True)
+    print(f"build: {', '.join(f'{n}.cu' for n in sources)} for sm_90a, "
           f"in parallel, in {time.perf_counter() - t0:.1f} s")
-    for name in SOURCES:
+    for name in sources:
         for line in logs[name].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build: {name}:", line.strip())
+    if opts.ssd:
+        from repro_torch.configs import REGISTRY
+        check_ssd_scan(torch)
+        cfg = REGISTRY["mamba2-370m"]
+        s = cfg.ssm
+        time_ssd_scan(torch, card, SSM_BATCH, SSM_PROMPT, s.nheads(cfg.d_model),
+                      s.headdim, s.d_state, s.chunk)
+        return 0
 
     # the one-rank client group the per-rank mixer runs over
     with socket.socket() as sock:

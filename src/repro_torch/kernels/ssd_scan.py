@@ -9,18 +9,25 @@ always written out: into ``state_out`` when the caller passes it (a
 cache's rows), else into a new tensor (the TPU kernel drops it; a
 prefill primes the decode cache with it).
 
-On a CUDA tensor this launches ``csrc/ssd_scan.cu`` (its header says what
-bounds it and how it is laid out), and raises if the build or the launch
-fails; on a CPU tensor it runs the plain version,
-:func:`repro_torch.kernels.ref.ssd_chunked_ref`.
+On a CUDA tensor this runs ``csrc/ssd_scan.cu`` (its header says what
+bounds it and how each pass is laid out), and raises if the build or a
+launch fails; on a CPU tensor it runs the plain version,
+:func:`repro_torch.kernels.ref.ssd_chunked_ref`.  A call on the card is
+three launches on the current stream, with no synchronisation: the
+chunks' own states, the state passing from chunk to chunk, and the
+chunks' outputs.  Between them the passes keep two scratch tensors that
+this wrapper allocates with ``torch.empty`` and drops on return: the
+states (B, S/Q, H, P, N) f32 (0.537 GB at Mamba2-370m's 4 x 32,768-token
+prefill) and the within-chunk cumsum of dt·A (B, S/Q, H, Q) f32.
 
 The kernel takes x, Bm and Cm as row-strided views (the conv output's
 slices in a prefill) as long as their inner dims are dense: x's (H, P)
 and Bm's and Cm's N.  It serves P and N of 32, 64 or 128, chunks of at
-most 1024 rows, and f32 or bf16 for x, Bm and Cm alike.
+most 1024 rows (ragged ones too), f32 or bf16 for x, Bm and Cm alike, and
+any B·H up to 2^31 − 1.
 
-``ssd_scan.launches`` counts kernel launches; the plain path does not
-count.
+``ssd_scan.launches`` counts calls that launched the kernel, one a call
+whatever the number of passes; the plain path does not count.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ def _library():
     from .build import load
     lib = load("ssd_scan")
     if lib.ssd_scan.argtypes is None:
-        lib.ssd_scan.argtypes = ([_ptr] * 7 + [_int] * 6 + [_ll] * 6
+        lib.ssd_scan.argtypes = ([_ptr] * 9 + [_int] * 6 + [_ll] * 6
                                  + [_int, _ptr])
         lib.ssd_scan.restype = _int
         lib.ssd_scan_error_string.argtypes = [_int]
@@ -104,13 +111,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not all(t.is_contiguous() for t in (dt, A, state_out)):
         raise ValueError("ssd_scan needs contiguous dt, A and state_out")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    nc = S // Q
+    states = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=x.device)
+    cums = torch.empty((Bsz, nc, H, Q), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), state_out.data_ptr(),
-            Bsz, S, H, P, N, Q, x.stride(0), x.stride(1), Bm.stride(0),
-            Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            states.data_ptr(), cums.data_ptr(), Bsz, S, H, P, N, Q,
+            x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
+            Cm.stride(1),
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

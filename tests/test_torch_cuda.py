@@ -665,7 +665,9 @@ SSD_SHAPES = [(1, 256, 1, 64, 64, 256), (2, 512, 4, 64, 128, 256),
               (4, 7, 32, 64, 128, 256),       # Q = 7
               (3, 300, 5, 32, 32, 16),        # Q halves to 4
               (2, 768, 2, 128, 128, 256), (1, 2048, 2, 64, 128, 1024),
-              (1, 512, 2, 32, 128, 256), (2, 384, 3, 128, 32, 128)]
+              (1, 512, 2, 32, 128, 256), (2, 384, 3, 128, 32, 128),
+              (1, 16384, 32, 64, 128, 256),   # 64 chunks at Mamba2's heads
+              (2, 512, 7, 64, 128, 256)]      # H 7: no multiple of 2 or 4
 
 
 def ssd_inputs(gen, B, S, H, P, N, dtype):
@@ -738,6 +740,29 @@ def test_ssd_scan_reads_row_strided_views(cuda):
     torch.cuda.synchronize()
     Q = chunk_len(S, 256)
     assert Q == 128
+    assert_ssd_close(y, ref, dt, A, Q, 2)
+    assert_ssd_close(out, final, dt, A, Q, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_reads_odd_row_strides(cuda, dtype):
+    """Views whose rows start at odd elements: bf16 pairs that are not
+    4-byte aligned, which the kernel copies by plain loads."""
+    from repro_torch.kernels.ref import chunk_len, ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, S, H, P, N = 2, 640, 4, 64, 128
+    xbc = _rand(gen, B, S, H * P + 2 * N + 1, dtype=dtype)
+    x = xbc[..., 1:H * P + 1].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P + 1:H * P + N + 1], xbc[..., H * P + N + 1:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=cuda)
+    out = torch.empty((B, H, P, N), device=cuda)
+    y, _ = ssd_scan(x, dt, A, Bm, Cm, 256, state_out=out)
+    ref, final = ssd_chunked_ref(x.contiguous(), dt, A, Bm.contiguous(),
+                                 Cm.contiguous(), 256)
+    torch.cuda.synchronize()
+    Q = chunk_len(S, 256)
     assert_ssd_close(y, ref, dt, A, Q, 2)
     assert_ssd_close(out, final, dt, A, Q, 1)
 
