@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py          # every phase, the result line last
-    python3 chip_smoke.py --ssd    # ssd_scan alone: build, checks, timing
+    python3 chip_smoke.py
 
 Run from the root of a checkout; it needs one CUDA card and builds the
 port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` first.
@@ -604,11 +603,13 @@ def ssd_passes(torch, call, calls: int = 5) -> dict:
 
 def time_ssd_scan(torch, card, B, S, H, P, N, chunk, reps=20):
     """ssd_scan f32 alone at one shape, on the mixer's ranges: held to its
-    plain version (ssd_assert_close), then ``reps`` calls each timed by its
-    own CUDA events (the inputs, over 1 GB at the slice's shape, find the
-    50 MB L2 cold), with nvidia-smi's SM clock read before and after; the
-    plain version once; each of the three launches' median over 5 profiled
-    calls.
+    plain version (ssd_assert_close), then ``reps`` calls queued back to
+    back behind a GPU sleep, as in device_ms, with a CUDA event between
+    each call and the next, so that each call's device time is read alone
+    and the host's enqueueing does not show (the inputs, over 1 GB at the
+    slice's shape, find the 50 MB L2 cold), with nvidia-smi's SM clock
+    read before and after; the plain version once; each of the three
+    launches' median over 5 profiled calls.
     Returns the kernel's row of the ``kernels`` line
     (``ms`` the median call) with ``launches`` left for the caller."""
     from repro_torch.kernels.ref import chunk_len, ssd_chunked_ref
@@ -625,15 +626,14 @@ def time_ssd_scan(torch, card, B, S, H, P, N, chunk, reps=20):
     err = max((y - ref).abs().max().item(), (out - final).abs().max().item())
     del ref, final, y
     clock_before = smi("clocks.sm,power.draw,temperature.gpu")
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(200_000_000)          # ~0.1 s while the host queues
+    events[0].record()
+    for event in events[1:]:
         ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        event.record()
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     clock_after = smi("clocks.sm,power.draw,temperature.gpu")
     passes = ssd_passes(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, chunk, state_out=out))
     times.sort()
@@ -2319,12 +2319,6 @@ def phase_dfl(torch, card):
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--ssd", action="store_true",
-                        help="build ssd_scan alone, hold it to its plain version over "
-                             "SSD_CASES and time it at the ssm phase's shape; no "
-                             "other phase and no result line")
-    opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs one NVIDIA "
@@ -2345,23 +2339,14 @@ def main() -> int:
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"allow_tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}; card {card}")
-    sources = ("ssd_scan",) if opts.ssd else SOURCES
     t0 = time.perf_counter()
-    logs = build(sources, verbose=True)
-    print(f"build: {', '.join(f'{n}.cu' for n in sources)} for sm_90a, "
+    logs = build(SOURCES, verbose=True)
+    print(f"build: {', '.join(f'{n}.cu' for n in SOURCES)} for sm_90a, "
           f"in parallel, in {time.perf_counter() - t0:.1f} s")
-    for name in sources:
+    for name in SOURCES:
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build: {name}:", line.strip())
-    if opts.ssd:
-        from repro_torch.configs import REGISTRY
-        check_ssd_scan(torch)
-        cfg = REGISTRY["mamba2-370m"]
-        s = cfg.ssm
-        time_ssd_scan(torch, card, SSM_BATCH, SSM_PROMPT, s.nheads(cfg.d_model),
-                      s.headdim, s.d_state, s.chunk)
-        return 0
 
     # the one-rank client group the per-rank mixer runs over
     with socket.socket() as sock:
