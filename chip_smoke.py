@@ -12,12 +12,16 @@ Phases, each printing its lines:
    ``gather_mix``, ``mix_accumulate``, ``quantize_block``,
    ``dequantize_block``, ``dequant_accumulate``, ``gather_mix_int8``,
    ``ssd_scan``, ``weighted_mix``), one ``nvcc`` per source, all started
-   together, timed; then the one-rank NCCL client group
-   (``repro_torch.launch.mesh``) on a free localhost port;
+   together, timed, with each ``flash_decode_kernel`` instantiation's
+   registers and spill bytes from ptxas (the main path's marked); then the
+   one-rank NCCL client group (``repro_torch.launch.mesh``) on a free
+   localhost port;
 3. kernels: each kernel against its plain PyTorch version on the card:
    ``flash_decode`` at the CPU tests' shapes and at the ``decode_32k``
-   width, with times; ``gather_mix`` over f32 and bf16, C from 2 to 200,
-   ragged N, duplicate and tensor sources, and an output that is the
+   width, with times (each launch's device time from the profiler, one
+   launch a call checked, the share of the bound, the wrapper's wall time
+   a call) and two calls held bit for bit; ``gather_mix`` over f32 and
+   bf16, C from 2 to 200, ragged N, duplicate and tensor sources, and an output that is the
    input; ``quantize_block`` and ``dequantize_block`` bit for bit
    (levels 127 and 7, blocks 128, 64 and 32, ragged N, all-zero blocks,
    subnormal scales, exact .5 ties, the residual in place too);
@@ -42,7 +46,7 @@ Phases, each printing its lines:
    of the kernels, then one ``decode_step`` with the kernel against the
    same with the plain attention, a breakdown of one decode tick and one
    prefill (host time against device busy time), and the kernel at the
-   slice's shape;
+   slice's shape, timed and checked as at ``decode_32k``;
 6. ssm: ``run_batch`` serving Mamba2-370m at full width and depth (48
    layers, random f32 weights from a seeded generator), batch 4, prompt
    32768 (``prefill_32k`` with its batch cut from 32), 64 generated:
@@ -196,12 +200,37 @@ def decode_bound(q, k, pos_list, L):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def decode_launches(torch, calls):
+    """Every device launch of one profiled pass over ``calls`` (behind a
+    GPU sleep, left out): launches seen a call, and each kernel's median
+    device ms by name.  Late in a long run the profiler can drop a
+    window's first events, so a count below one a call is possible; one
+    above it is not."""
+    from torch.profiler import ProfilerActivity, profile
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(200_000_000)
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    per_call = sum(map(len, by_name.values())) / len(calls)
+    return per_call, {name: sorted(ms)[len(ms) // 2] for name, ms in by_name.items()}
+
+
 def measure_decode(torch, F, q, caches, pos, reps):
     """flash_decode against flash_decode_ref on the card over each (k, v)
     of ``caches``, held to :func:`decode_tol`: the worst error, the
-    largest |ref|, the empty rows, and the kernel, plain, bound and
-    library times of one call (``reps`` passes over the caches for the
-    kernel, a tenth of that for the others)."""
+    largest |ref|, the empty rows, two calls bit for bit, the device
+    launches a call (at most one, all ``flash_decode_kernel``, checked)
+    and their profiled ms, and the kernel, plain, bound and library times of one
+    call (``reps`` passes over the caches for the kernel, a tenth of that
+    for the others) with the wrapper's wall time per call."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.ref import flash_decode_ref
     B, L = q.shape[0], caches[0][0].shape[1]
@@ -216,6 +245,8 @@ def measure_decode(torch, F, q, caches, pos, reps):
         ref_max = max(ref_max, ref.float().abs().max().item())
         check(all(bool((out[b] == 0).all()) for b in empty),
               "an empty row of flash_decode is not exactly 0")
+        check(torch.equal(out, flash_decode(q, k, v, pos)),
+              "two flash_decode calls on the same inputs differ")
     # the library yardstick: one SDPA call with a boolean mask (the port
     # never calls it)
     idx = torch.arange(L, device=q.device)
@@ -230,15 +261,67 @@ def measure_decode(torch, F, q, caches, pos, reps):
         return lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, enable_gqa=True)
     kernel_calls = [call(flash_decode, k, v) for k, v in caches]
+    per_call, launch_ms = decode_launches(torch, kernel_calls)
+    check(0 < per_call <= 1 and all("flash_decode_kernel" in name for name in launch_ms),
+          f"flash_decode calls made {per_call} device launches each: {launch_ms}")
     few = max(1, reps // 10)
     bound_ms, bound_by = decode_bound(q, caches[0][0], pos_list, L)
+    ms = device_ms(torch, kernel_calls, reps)
     return {"max_abs_err": err, "ref_max": ref_max, "empty_rows": len(empty),
-            "ms": device_ms(torch, kernel_calls, reps),
+            "ms": ms, "share": bound_ms / ms, "per_call": per_call,
+            "launch_ms": launch_ms,
             "host_ms": host_ms(torch, kernel_calls[0], 100),
             "plain_ms": device_ms(torch, [call(flash_decode_ref, k, v)
                                           for k, v in caches], few),
             "library_ms": device_ms(torch, [library(k, v) for k, v in caches], few),
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def decode_line(m, card) -> str:
+    """The timing part of a flash_decode line of :func:`measure_decode`."""
+    launches = ", ".join(
+        f"{name.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]}"
+        f" {ms:.4f} ms" for name, ms in m["launch_ms"].items())
+    return (f"device time per call: kernel {m['ms']:.4f} ms, plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}; {100 * m['share']:.1f} % of it reached), SDPA "
+            f"{m['library_ms']:.4f} ms; profiled device launches a call "
+            f"{m['per_call']:g}, each {launches}; two calls the same bits; wall per kernel "
+            f"call {m['host_ms']:.4f} ms ({card})")
+
+
+#: flash_decode_kernel's instantiations on the main path: (q, kv dtype,
+#: head_dim, GM), the slice's f32 and decode_32k's bf16 at Llama-3.2-3B's
+#: head_dim 128 and group of 3 (GM 4)
+DECODE_MAIN = {("f32", "f32", 128, 4), ("bf16", "bf16", 128, 4)}
+
+
+def report_flash_decode_build(log: str) -> None:
+    """One line per flash_decode_kernel instantiation from ``nvcc -Xptxas
+    -v``: registers and spill bytes, the main path's marked (both must be
+    in the log)."""
+    import re
+    entry, spills, seen = None, (0, 0), set()
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        t = entry and re.search(r"flash_decode_kernelI(.+?)Li(\d)ELi(\d+)E", entry)
+        if m and t:
+            kinds = re.sub(r"13__nv_bfloat16|S\d*_", "b", t[1])
+            key = tuple("bf16" if c == "b" else "f32" for c in kinds) + (
+                32 * int(t[2]), int(t[3]))
+            main = key in DECODE_MAIN
+            seen.add(key)
+            print(f"build: flash_decode_kernel<q {key[0]}, kv {key[1]}, head_dim "
+                  f"{key[2]}, GM {key[3]}>: {m[1]} registers, spill stores "
+                  f"{spills[0]} B, loads {spills[1]} B" + (" (main path)" if main else ""))
+    check(DECODE_MAIN <= seen, f"ptxas reported no {DECODE_MAIN - seen}")
 
 
 def phase_kernels(torch, F, card):
@@ -282,10 +365,7 @@ def phase_kernels(torch, F, card):
     print(f"kernels: flash_decode bf16 (16, 24, 128) x (16, 32768, 8, 128), "
           f"{m['empty_rows']} empty rows: max abs err {m['max_abs_err']:.3e} "
           f"(tol {1e-2 * m['ref_max']:.3e} = 1e-2 x max|ref| + 1e-2 |ref|); "
-          f"device time per call: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
-          f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}), "
-          f"SDPA {m['library_ms']:.4f} ms; wall per kernel call "
-          f"{m['host_ms']:.4f} ms ({card})")
+          + decode_line(m, card))
 
 
 def phase_small(torch):
@@ -451,11 +531,7 @@ def phase_slice(torch, F, card):
     m = measure_decode(torch, F, q, caches, loop.cache["pos"], 10)
     print(f"slice: flash_decode f32 at the slice's shape (8, 24, 128) x "
           f"(8, 576, 8, 128), the {cfg.num_layers} layers' caches in turn: "
-          f"max abs err {m['max_abs_err']:.3e} (tol 1e-5); device time per call: kernel "
-          f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
-          f"{m['bound_ms']:.4f} ms ({m['bound_by']}), SDPA "
-          f"{m['library_ms']:.4f} ms; wall per kernel call "
-          f"{m['host_ms']:.4f} ms ({card})")
+          f"max abs err {m['max_abs_err']:.3e} (tol 1e-5); " + decode_line(m, card))
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:98",
@@ -2344,9 +2420,12 @@ def main() -> int:
     print(f"build: {', '.join(f'{n}.cu' for n in SOURCES)} for sm_90a, "
           f"in parallel, in {time.perf_counter() - t0:.1f} s")
     for name in SOURCES:
+        if name == "flash_decode":
+            continue
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build: {name}:", line.strip())
+    report_flash_decode_build(logs["flash_decode"])
 
     # the one-rank client group the per-rank mixer runs over
     with socket.socket() as sock:

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.configs import tiny_lm
+from repro_torch.kernels import flash_decode as fd_module
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.gather_mix import gather_mix
 from repro_torch.kernels.ref import flash_decode_ref, gather_mix_ref
@@ -121,6 +122,130 @@ def test_kernel_rejects_bad_layouts(cuda):
             flash_decode(torch.zeros((2, 8, hd), device=cuda), kh, kh, 3)
     with pytest.raises(ValueError, match="query heads per KV head"):
         flash_decode(torch.zeros((2, 64, 64), device=cuda), k, k, 3)
+
+
+DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+def _decode_case(gen, B, Hq, Hkv, hd, L, q_dtype=torch.float32,
+                 kv_dtype=torch.float32):
+    return (_rand(gen, B, Hq, hd, dtype=q_dtype),
+            _rand(gen, B, L, Hkv, hd, dtype=kv_dtype),
+            _rand(gen, B, L, Hkv, hd, dtype=kv_dtype))
+
+
+def _check_decode(q, k, v, pos):
+    """One launch, held to the plain version; empty rows exactly 0."""
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    assert out.dtype == q.dtype
+    ref = flash_decode_ref(q, k, v, pos)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(ref))
+    pos = torch.as_tensor(pos).reshape(-1).expand(q.shape[0])
+    for b in (pos < 0).nonzero().flatten().tolist():
+        assert torch.all(out[b] == 0)
+    return out
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 16])
+def test_kernel_group_widths_and_dtypes(cuda, G, hd, q_dtype, kv_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(G * hd)
+    q, k, v = _decode_case(gen, 3, 2 * G, 2, hd, 300, q_dtype, kv_dtype)
+    pos = torch.tensor([299, 40, -1], dtype=torch.int32, device=cuda)
+    _check_decode(q, k, v, pos)
+
+
+@pytest.mark.parametrize("L,pos", [(1, [0, -1, 5]), (33, [32, 31, 0]),
+                                   (95, [94, 64, 200]), (1000, [999, 500, 33])])
+def test_kernel_short_and_ragged_caches(cuda, L, pos):
+    """L = 1 and lengths that are no multiple of the 32-row tile."""
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    for kv_dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _decode_case(gen, 3, 8, 2, 64, L, torch.float32, kv_dtype)
+        _check_decode(q, k, v, torch.tensor(pos, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_kernel_pos_on_span_edges(cuda, delta):
+    """One (b, KV head) whose valid rows are the grid's blocks times the
+    tile (every span one whole tile), one row fewer and one more; and a
+    row whose spans end on tile edges beside a short one."""
+    n_blocks = fd_module.grid_blocks(1, 1, 1 << 20, fd_module._sm_count(cuda.index or 0),
+                                     fd_module.blocks_per_sm(4, 4))
+    L = n_blocks * fd_module.TILE_ROWS + 2
+    gen = torch.Generator(device=cuda).manual_seed(L + delta)
+    q, k, v = _decode_case(gen, 1, 4, 1, 128, L)
+    pos = n_blocks * fd_module.TILE_ROWS - 1 + delta
+    spans = fd_module.partition([pos], 1, L, n_blocks)
+    if delta == 0:
+        assert all(r1 - r0 == fd_module.TILE_ROWS for _, _, r0, r1, _, _ in spans)
+    _check_decode(q, k, v, pos)
+    q, k, v = _decode_case(gen, 2, 6, 2, 64, 4096, torch.bfloat16, torch.bfloat16)
+    _check_decode(q, k, v, torch.tensor([4095, fd_module.TILE_ROWS - 1 + delta],
+                                        dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype,hd,offset", [(torch.bfloat16, 128, 4),
+                                             (torch.float32, 32, 1),
+                                             (torch.bfloat16, 32, 1)])
+def test_kernel_reads_rows_on_narrow_boundaries(cuda, dtype, hd, offset):
+    """Rows that start on 8, 4 or 2 bytes (views ``offset`` elements into
+    a wider last axis): copied in narrower words, or by plain loads."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + offset)
+    k = _rand(gen, 3, 200, 2, hd + 8, dtype=dtype)[..., offset:offset + hd]
+    v = _rand(gen, 3, 200, 2, hd + 8, dtype=dtype)[..., offset:offset + hd]
+    q = _rand(gen, 3, 6, hd, dtype=dtype)
+    _check_decode(q, k, v, torch.tensor([199, 70, -1], dtype=torch.int32, device=cuda))
+
+
+def test_kernel_all_slots_empty(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = _decode_case(gen, 8, 24, 8, 128, 576)
+    out = _check_decode(q, k, v, torch.full((8,), -1, dtype=torch.int32, device=cuda))
+    assert torch.all(out == 0)
+
+
+def test_kernel_one_live_slot_among_empty(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for kv_dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _decode_case(gen, 16, 24, 8, 128, 2048, kv_dtype, kv_dtype)
+        pos = torch.full((16,), -1, dtype=torch.int32, device=cuda)
+        pos[5] = 1999
+        _check_decode(q, k, v, pos)
+
+
+def test_kernel_reads_a_layer_of_a_5d_cache(cuda):
+    """The serving loop passes ``cache["k"][i]``, a layer's view of a
+    (layers, B, L, Hkv, hd) buffer, read in place."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kc = _rand(gen, 4, 8, 576, 8, 128)
+    vc = _rand(gen, 4, 8, 576, 8, 128)
+    q = _rand(gen, 8, 24, 128)
+    pos = torch.tensor([-1, 100, 575, -1, 63, 64, 511, 300], dtype=torch.int32,
+                       device=cuda)
+    for i in range(kc.shape[0]):
+        _check_decode(q, kc[i], vc[i], pos)
+
+
+def test_kernel_same_bits_twice(cuda):
+    """Spans merge in span order, whatever order the blocks finish in,
+    and the tickets are back at 0 after each call."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _decode_case(gen, 4, 24, 8, 128, 8192, dtype, dtype)
+        pos = torch.tensor([8191, 3000, -1, 20000], dtype=torch.int32, device=cuda)
+        a = flash_decode(q, k, v, pos)
+        b = flash_decode(q, k, v, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        stream = torch.cuda.current_stream(cuda).cuda_stream
+        ticket = fd_module._SCRATCH[(cuda.index or 0, stream)][1]
+        assert torch.all(ticket == 0)
 
 
 def test_serve_loop_card_matches_cpu(cuda):

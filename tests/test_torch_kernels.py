@@ -9,6 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.ref import flash_decode_ref as jax_flash_decode_ref
@@ -124,16 +126,136 @@ def test_flash_decode_rejects_bad_inputs():
         flash_decode(q8, k, k[:, :, :, :8], 3)
 
 
-@pytest.mark.parametrize("B,Hkv,L", [(16, 8, 32768), (8, 8, 576), (1, 1, 256),
-                                     (5, 2, 700), (1, 8, 40), (64, 8, 100)])
-def test_flash_decode_splits_cover_the_cache(B, Hkv, L):
-    """The CUDA launch's L spans: every cache row in exactly one span,
-    at most MAX_CHUNK rows, and no more spans than MIN_CHUNK-row pieces
-    of L."""
-    n_split, chunk = fd_module._splits(B, Hkv, L, sms=132)
-    assert (n_split - 1) * chunk < L <= n_split * chunk
-    assert chunk <= fd_module.MAX_CHUNK
-    assert n_split <= -(-L // fd_module.MIN_CHUNK)
+@st.composite
+def _layouts(draw, kind):
+    """(B, Hkv, L, sms, pos) with ``pos`` of one kind: live rows, empty
+    slots and pos >= L mixed; every slot empty; one live slot among many
+    empty ones; every pos at or past L; rows of 0 or 1 entries; every row
+    live and inside the cache."""
+    B = draw(st.integers(1, 48))
+    Hkv = draw(st.integers(1, 16))
+    L = draw(st.integers(1, 3000))
+    sms = draw(st.integers(1, 264))
+    if kind == "mixed":
+        pos = draw(st.lists(st.integers(-5, L + 40), min_size=B, max_size=B))
+    elif kind == "all_empty":
+        pos = draw(st.lists(st.integers(-9, -1), min_size=B, max_size=B))
+    elif kind == "one_live":
+        pos = [-1] * B
+        pos[draw(st.integers(0, B - 1))] = draw(st.integers(0, 2 * L))
+    elif kind == "past_cache":
+        pos = draw(st.lists(st.integers(L - 1, L + 100), min_size=B, max_size=B))
+    elif kind == "tiny_rows":
+        pos = draw(st.lists(st.integers(-1, 0), min_size=B, max_size=B))
+    else:
+        pos = draw(st.lists(st.integers(0, L - 1), min_size=B, max_size=B))
+    return B, Hkv, L, sms, pos
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_empty", "one_live",
+                                  "past_cache", "tiny_rows", "full"])
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(data=st.data())
+def test_flash_decode_partition_covers_the_valid_rows(kind, data):
+    """The mirror of the kernel's work partition: every valid row of every
+    (b, KV head) lies in exactly one span; no span is empty, and every
+    block has one when there are at least as many valid rows as blocks;
+    the spans of a (b, KV head) sit Hkv blocks apart in row order (the
+    merge's order); the grid depends on the shapes alone and holds a
+    block for each slot's zeros; the partials and tickets fit the
+    wrapper's scratch."""
+    B, Hkv, L, sms, pos = data.draw(_layouts(kind))
+    G = data.draw(st.integers(1, fd_module.MAX_GROUP))
+    hd = data.draw(st.sampled_from(fd_module.HEAD_DIMS))
+    per_sm = fd_module.blocks_per_sm(data.draw(st.sampled_from([2, 4])), G)
+    n_blocks = fd_module.grid_blocks(B, Hkv, L, sms, per_sm)
+    assert n_blocks % Hkv == 0 and B * Hkv <= n_blocks <= B * Hkv * L
+    assert n_blocks <= max(B * Hkv, per_sm * sms + Hkv - 1)
+    spans = fd_module.partition(pos, Hkv, L, n_blocks)
+    assert len(spans) == n_blocks
+    valid = [0 if p < 0 else min(p + 1, L) for p in pos]
+    total = Hkv * sum(valid)
+    busy = [i for i, sp in enumerate(spans) if sp is not None]
+    assert len(busy) == min(n_blocks, total)
+    assert busy == list(range(len(busy)))
+    floats, ints = fd_module.scratch_sizes(B, G * Hkv, Hkv, hd, n_blocks)
+    by_unit = {}
+    for i in busy:
+        b, h, r0, r1, first, count = spans[i]
+        assert 0 <= r0 < r1 <= valid[b] and i % Hkv == h
+        assert i in range(first, first + count * Hkv, Hkv)
+        stride = -(-G * (hd + 2) // 4) * 4    # a partial, padded to 16 bytes
+        assert (i + 1) * stride <= floats and b * Hkv + h < ints
+        by_unit.setdefault((b, h), []).append((i, r0, r1, first, count))
+    for b in range(B):
+        for h in range(Hkv):
+            got = by_unit.get((b, h), [])
+            if not valid[b]:
+                assert got == []
+                continue
+            _, _, _, first, count = got[0]
+            assert [g[0] for g in got] == list(range(first, first + count * Hkv, Hkv))
+            assert 1 <= count <= valid[b]
+            rows = [r for _, r0, r1, _, _ in got for r in range(r0, r1)]
+            assert rows == list(range(valid[b]))
+
+
+def _kernel_model(q, k, v, pos, n_blocks):
+    """The kernel's arithmetic in float64 torch: each span of
+    :func:`partition` scored tile by tile (TILE_ROWS rows) with a running
+    max rescaled once a tile, then a unit's partials merged in span
+    order."""
+    B, Hq, hd = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    out = torch.zeros(B, Hq, hd, dtype=torch.float64)
+    parts = {}
+    for span in fd_module.partition(pos, Hkv, L, n_blocks):
+        if span is None:
+            continue
+        b, h, r0, r1, first, count = span
+        qg = q[b, h * G:(h + 1) * G].double()
+        m = torch.full((G,), -1e30, dtype=torch.float64)
+        l = torch.zeros(G, dtype=torch.float64)
+        acc = torch.zeros(G, hd, dtype=torch.float64)
+        for t in range(r0, r1, fd_module.TILE_ROWS):
+            kt = k[b, t:min(t + fd_module.TILE_ROWS, r1), h].double()
+            vt = v[b, t:min(t + fd_module.TILE_ROWS, r1), h].double()
+            s = qg @ kt.T * hd ** -0.5
+            m_new = torch.maximum(m, s.max(dim=1).values)
+            p = torch.exp(s - m_new[:, None])
+            alpha = torch.exp(m - m_new)
+            l, m = l * alpha + p.sum(dim=1), m_new
+            acc = acc * alpha[:, None] + p @ vt
+        parts.setdefault((b, h), []).append((first, m, l, acc))
+    for (b, h), ps in parts.items():
+        mx = torch.stack([m for _, m, _, _ in ps]).max(dim=0).values
+        lsum = sum(l * torch.exp(m - mx) for _, m, l, _ in ps)
+        acc = sum(a * torch.exp(m - mx)[:, None] for _, m, _, a in ps)
+        out[b, h * G:(h + 1) * G] = acc / lsum[:, None]
+    return out
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,hd,L,pos,sms", [
+    (8, 24, 8, 32, 576, [-1, 100, 575, -1, 63, 64, 511, 300], 4),
+    (1, 4, 1, 64, 1, [0], 1),
+    (3, 8, 2, 32, 95, [94, 200, -1], 2),
+    (4, 16, 1, 32, 700, [699, 1, 0, 33], 3),
+    (16, 8, 2, 16, 40, [-1] * 15 + [39], 5),
+    (2, 6, 2, 16, 257, [256, 128], 132)])
+def test_flash_decode_partition_model_matches_ref(B, Hq, Hkv, hd, L, pos, sms):
+    """Spans, tiles and the in-order merge of the kernel's design give
+    ``flash_decode_ref``'s result (float64 model against the f32 plain
+    version, 1e-5), with empty rows exactly 0."""
+    arrays = _inputs(np.random.default_rng(L + B), B, Hq, Hkv, hd, L)
+    q, k, v = _torch(arrays, torch.float32)
+    n_blocks = fd_module.grid_blocks(B, Hkv, L, sms, 2)
+    got = _kernel_model(q, k, v, pos, n_blocks)
+    ref = flash_decode_ref(q, k, v, torch.tensor(pos)).double()
+    assert (got - ref).abs().max() <= 1e-5
+    for b, p in enumerate(pos):
+        if p < 0:
+            assert torch.all(got[b] == 0)
 
 
 def test_ref_empty_row_exact_zero():
