@@ -200,6 +200,31 @@ def test_flash_decode_partition_covers_the_valid_rows(kind, data):
             assert rows == list(range(valid[b]))
 
 
+@pytest.mark.parametrize("B,Hkv,L", [(16, 8, 32768), (8, 8, 576), (1, 1, 256),
+                                     (5, 2, 700), (1, 8, 40), (64, 8, 100)])
+def test_flash_decode_splits_cover_the_cache(B, Hkv, L):
+    """Full caches on an H100's 132 SMs: every cache row of every (b, KV
+    head) in exactly one span, the rows shared out evenly (a row's span
+    count within one of every other row's, its span lengths within one
+    of each other), and every block busy when the cache has the rows."""
+    for per_sm in (2, 4):
+        n_blocks = fd_module.grid_blocks(B, Hkv, L, 132, per_sm)
+        spans = fd_module.partition([L - 1] * B, Hkv, L, n_blocks)
+        assert all(sp is not None for sp in spans[:min(n_blocks, B * Hkv * L)])
+        by_unit = {}
+        for sp in spans:
+            if sp is not None:
+                b, h, r0, r1, _, _ = sp
+                by_unit.setdefault((b, h), []).append((r0, r1))
+        assert sorted(by_unit) == [(b, h) for b in range(B) for h in range(Hkv)]
+        counts = [len(got) for got in by_unit.values()]
+        assert max(counts) - min(counts) <= 1
+        for got in by_unit.values():
+            assert [r for r0, r1 in got for r in range(r0, r1)] == list(range(L))
+            lengths = [r1 - r0 for r0, r1 in got]
+            assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1
+
+
 def _kernel_model(q, k, v, pos, n_blocks):
     """The kernel's arithmetic in float64 torch: each span of
     :func:`partition` scored tile by tile (TILE_ROWS rows) with a running
