@@ -13,7 +13,9 @@ Phases, each printing its lines:
    ``dequantize_block``, ``dequant_accumulate``, ``gather_mix_int8``,
    ``ssd_scan``, ``weighted_mix``), one ``nvcc`` per source, all started
    together, timed, with each ``flash_decode_kernel`` instantiation's
-   registers and spill bytes from ptxas (the main path's marked); then the
+   registers and spill bytes from ptxas (the main path's marked) and a
+   summary of ``weighted_mix_kernel``'s (its main path's without spills,
+   checked); then the
    one-rank NCCL client group (``repro_torch.launch.mesh``) on a free
    localhost port;
 3. kernels: each kernel against its plain PyTorch version on the card:
@@ -32,8 +34,9 @@ Phases, each printing its lines:
    ``ssd_scan``, y and the final state, f32 and bf16, S a multiple of
    256 and S that makes the chunk halve, B 1-4, H 1-32, P and N 32-128,
    64 chunks at Mamba2's heads, H 7;
-   ``weighted_mix`` bit for bit, f32 and bf16, K 1-100, N 1 to 2^24 + 3,
-   masked, all masked, row-strided, out a row of the input;
+   ``weighted_mix`` bit for bit, f32 and bf16, K 1-513, N 1 to 2^24 + 3,
+   device and host weights, masked, all masked, row-strided, out a row of
+   the input;
 4. small: the ``tiny_lm`` ``ServeLoop`` on the card against the same on
    the CPU, token for token; the ``tiny_lm`` ``SlotTrainLoop`` with a
    fail and a join on the card against the same on the CPU (alive
@@ -88,10 +91,12 @@ Phases, each printing its lines:
    engine's aggregations, peak memory against its reckoning, fedlay's
    accuracy rising, fedlay on the card against the same call on the
    CPU), each method's wall time, accuracy, messages and suppressed
-   sends, where a fedlay run's host time goes, and ``weighted_mix`` at
-   the wake-up's shape (in the engine's layout and with rows padded to
-   16 bytes) and at a bandwidth shape against its plain version, its
-   bound and ``torch.matmul``;
+   sends, where a fedlay run's host time goes and the mean of its
+   ``engine.aggregate`` span, and ``weighted_mix`` at the wake-up's shape
+   (in the engine's layout and with rows padded to 16 bytes) and at a
+   bandwidth shape, with host weights (the engine's) and device weights,
+   against its plain version, its bound and ``torch.matmul``, with the
+   wrapper's wall time a call at the wake-up;
 11. the ``kernels`` JSON line (all nine kernels), the card's name and
    power limit, and the result line ``{"ok": true, "device": {...}}``.
 
@@ -322,6 +327,47 @@ def report_flash_decode_build(log: str) -> None:
                   f"{key[2]}, GM {key[3]}>: {m[1]} registers, spill stores "
                   f"{spills[0]} B, loads {spills[1]} B" + (" (main path)" if main else ""))
     check(DECODE_MAIN <= seen, f"ptxas reported no {DECODE_MAIN - seen}")
+
+
+#: weighted_mix_kernel's instantiation on the main path: (dtype, VEC, K,
+#: weights), the engine's wake-up (f32 rows 8 bytes off the 16-byte grid,
+#: fedlay's K 7 at L = 3, host weights carried in the launch)
+WMIX_MAIN = ("f32", 2, 7, "by value")
+
+
+def report_weighted_mix_build(log: str) -> None:
+    """One line for weighted_mix's instantiations from ``nvcc -Xptxas -v``:
+    how many, their most registers and their spill bytes, and the main
+    path's registers and spills (it must be in the log and spill
+    nothing)."""
+    import re
+    entry, spills, found = None, (0, 0), {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        t = entry and re.search(
+            r"weighted_mix_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E.*?(ByValue|ByPointer)",
+            entry)
+        if m and t:
+            key = ("f32" if t[1] == "f" else "bf16", int(t[2]), int(t[3]),
+                   "by value" if t[4] == "ByValue" else "by pointer")
+            found[key] = (int(m[1]), *spills)
+    check(WMIX_MAIN in found, f"ptxas reported no weighted_mix_kernel {WMIX_MAIN}")
+    regs, stores, loads = found[WMIX_MAIN]
+    check(stores == loads == 0, f"the main path's weighted_mix_kernel spills {stores} / "
+                                f"{loads} B")
+    print(f"build: weighted_mix_kernel: {len(found)} instantiations (dtype x load width "
+          f"x K 1-16 and runtime K x weights by value or pointer), at most "
+          f"{max(r for r, _, _ in found.values())} registers, spill stores "
+          f"{sum(v[1] for v in found.values())} B, loads "
+          f"{sum(v[2] for v in found.values())} B in all; main path <{', '.join(map(str, WMIX_MAIN))}>: "
+          f"{regs} registers, no spills")
 
 
 def phase_kernels(torch, F, card):
@@ -2167,19 +2213,24 @@ DFL_CARD_TOL = 1e-4
 
 def check_weighted_mix(torch):
     """weighted_mix against weighted_mix_ref on the card, bit for bit:
-    f32 and bf16, K in {1, 2, 7, 15, 100}, N in {1, 127, 50,890, 2^24 + 3},
-    with no mask, a mask, and every model masked (zeros); the same models
-    as a row-strided view (on the 16-byte grid when N + 5 rounds so, the
-    scalar path otherwise), and an ``out`` that is a row of that view.
-    Both sum from zero in the order k = 0 … K−1 with each product rounded
-    to f32 (tolerance 0)."""
+    f32 and bf16, K in {1, 2, 7, 15, 16, 17, 100, 513} (the fixed-K
+    instantiations up to 16, the runtime K's groups of 8, and one K over
+    the host weights carried by value), N in {1, 127, 50,890, 2^24 + 3}
+    (K 513 up to 50,890), with no mask, a mask, and every model masked
+    (zeros); the same weights and mask from the host, bit for bit with the
+    device's; the same models as a row-strided view (on the 16-byte grid
+    when N + 5 rounds so, narrower loads otherwise), and an ``out`` that is
+    a row of that view.  Both sum from zero in the order k = 0 … K−1 with
+    each product rounded to f32 (tolerance 0)."""
     from repro_torch.kernels.ref import weighted_mix_ref
     from repro_torch.kernels.weighted_mix import weighted_mix
     gen = torch.Generator(device="cuda").manual_seed(17)
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for K in (1, 2, 7, 15, 100):
+        for K in (1, 2, 7, 15, 16, 17, 100, 513):
             for N in (1, 127, 50_890, 2 ** 24 + 3):
+                if K > 100 and N > 50_890:
+                    continue
                 pad = 8 - N % 8 if N % 2 else 5
                 big = torch.randn((K, N + pad), generator=gen, device="cuda").to(dtype)
                 view = big[:, :N]
@@ -2190,25 +2241,28 @@ def check_weighted_mix(torch):
                 for mask in (None, some, torch.zeros_like(some)):
                     out = weighted_mix(models, w, mask=mask)
                     ref = weighted_mix_ref(models, w, mask)
-                    check(out.dtype == dtype and torch.equal(bits(out), bits(ref)),
+                    host = weighted_mix(models, w.cpu(),
+                                        mask=None if mask is None else mask.cpu())
+                    check(out.dtype == dtype and torch.equal(bits(out), bits(ref))
+                          and torch.equal(bits(host), bits(out)),
                           f"weighted_mix differs at K {K}, N {N}, {dtype}, mask "
                           f"{None if mask is None else mask.tolist()[:4]}")
-                    cases += 1
+                    cases += 2
                 check(not weighted_mix(models, w, mask=torch.zeros_like(some)).any(),
                       "an all-masked weighted_mix is not zeros")
                 want = weighted_mix_ref(models, w)
                 check(torch.equal(bits(weighted_mix(view, w)), bits(want)),
                       f"weighted_mix over a row-strided view differs at K {K}, N {N}")
-                check(weighted_mix(view, w, out=view[K // 2]).data_ptr()
+                check(weighted_mix(view, w.cpu(), out=view[K // 2]).data_ptr()
                       == view[K // 2].data_ptr() and torch.equal(bits(view[K // 2]),
                                                                  bits(want)),
                       f"weighted_mix into a row of its input differs at K {K}, N {N}")
                 cases += 2
                 del big, view, models
     torch.cuda.synchronize()
-    print(f"kernels: weighted_mix on {cases} cases (f32 and bf16, K 1 to 100, N 1 to "
-          f"2^24 + 3, masked, all masked, row-strided, out a row of the input): bit "
-          f"for bit with its plain version (tolerance 0)")
+    print(f"kernels: weighted_mix on {cases} cases (f32 and bf16, K 1 to 513, N 1 to "
+          f"2^24 + 3, device and host weights, masked, all masked, row-strided, out a "
+          f"row of the input): bit for bit with its plain version (tolerance 0)")
 
 
 def dfl_reckoned(task, method, n, N) -> tuple:
@@ -2242,8 +2296,10 @@ def phase_dfl(torch, card):
     on MNIST's 28 x 28 input width, 100 clients, for fedlay, its two
     ablations and Table III's baselines, each aggregation one weighted_mix
     launch; fedlay on the card against the same call on the CPU; where a
-    fedlay run's host time goes; weighted_mix alone at the wake-up's shape
-    and at a bandwidth shape."""
+    fedlay run's host time goes and the mean of its engine.aggregate span;
+    weighted_mix alone at the wake-up's shape, padded and at a bandwidth
+    shape, with host weights (the engine's) and device weights, and the
+    wrapper's wall time a call at the wake-up."""
     import numpy as np
     from repro_torch.core.baselines import fedlay
     from repro_torch.core.dfl import Engine
@@ -2350,12 +2406,18 @@ def phase_dfl(torch, card):
         f"{name} {h.total:.1f} ms ({100 * h.total / wall:.1f} %, {h.count} x "
         f"{h.mean:.3f} ms)" for name, h in parts.items())
         + f"; the rest (sends, heap, weights) {wall - spent:.1f} ms ({card})")
+    agg = parts["aggregate"]
+    print(f"dfl: engine.aggregate mean {agg.mean:.4f} ms a call (min {agg.min:.4f}, max "
+          f"{agg.max:.4f}) over {agg.count} calls of one fedlay run ({card})")
     del res
 
     # weighted_mix alone: the wake-up's (1 + D, N) block as the engine lays
-    # it out (rows 50,890 f32 apart, 8 bytes off the 16-byte grid: the
-    # kernel's scalar path), the same block with rows padded to 16 bytes
-    # (its vector path), and a bandwidth shape
+    # it out (rows 50,890 f32 apart, 8 bytes off the 16-byte grid: 8-byte
+    # loads), the same block with rows padded to 16 bytes (16-byte loads),
+    # and a bandwidth shape; each with the weights from the host, as the
+    # engine passes them (carried in the launch), and from the device
+    from repro_torch.kernels.gather_mix import _sm_count
+    from repro_torch.kernels.weighted_mix import launch_plan
     K = 1 + max(fedlay(n, DFL_SPACES).degrees().values())
     gen = torch.Generator(device="cuda").manual_seed(23)
     timed = {}
@@ -2366,12 +2428,18 @@ def phase_dfl(torch, card):
         block = torch.randn((k, width), generator=gen, device="cuda")[:, :cols]
         w = torch.rand((k,), generator=gen, device="cuda")
         w /= w.sum()
+        w_host = w.cpu()
         out = torch.empty(cols, device="cuda")
         ref = weighted_mix_ref(block, w)
-        got = weighted_mix(block, w, out=out)
-        check(torch.equal(bits(got), bits(ref)), f"weighted_mix differs at ({k}, {cols})")
+        got = weighted_mix(block, w_host, out=out)
+        check(torch.equal(bits(got), bits(ref))
+              and torch.equal(bits(weighted_mix(block, w)), bits(ref)),
+              f"weighted_mix differs at ({k}, {cols})")
         err = (got - ref).abs().max().item()
-        ms = device_ms(torch, [lambda: weighted_mix(block, w, out=out)], reps)
+        plan = launch_plan(k, cols, 4, width, block.data_ptr(), out.data_ptr(),
+                           _sm_count(0), True)
+        ms = device_ms(torch, [lambda: weighted_mix(block, w_host, out=out)], reps)
+        dev_ms = device_ms(torch, [lambda: weighted_mix(block, w, out=out)], reps)
         plain_ms = device_ms(torch, [lambda: weighted_mix_ref(block, w)], max(1, reps // 10))
         lib_ms = device_ms(torch, [lambda: torch.matmul(w, block)], reps)
         t_b = (k + 1) * cols * 4 / HBM_BYTES_PER_S
@@ -2380,11 +2448,19 @@ def phase_dfl(torch, card):
         timed[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=lib_ms)
         print(f"dfl: weighted_mix f32 at the {label} shape K = {k}, N = {cols}, row "
-              f"stride {width}: bit for bit with its plain version; device time per "
-              f"call: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}, {(k + 1) * cols * 4 / 1e6:.1f} MB), torch.matmul(w, models) "
+              f"stride {width} ({plan.vec * 4}-byte loads, {plan.blocks} blocks of "
+              f"{plan.threads}): bit for bit with its plain version, host and device "
+              f"weights; device time per call: kernel {ms:.4f} ms with host weights "
+              f"({100 * bound_ms / ms:.1f} % of the bound), {dev_ms:.4f} ms with device "
+              f"weights, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{(k + 1) * cols * 4 / 1e6:.1f} MB), torch.matmul(w, models) "
               f"{lib_ms:.4f} ms ({card})")
+        if label == "wake-up":
+            wall_host = host_ms(torch, lambda: weighted_mix(block, w_host, out=out), 1000)
+            wall_dev = host_ms(torch, lambda: weighted_mix(block, w, out=out), 1000)
+            print(f"dfl: weighted_mix wall time per call at the wake-up shape, 1000 calls "
+                  f"back to back: {wall_host:.4f} ms with host weights, {wall_dev:.4f} ms "
+                  f"with device weights ({card})")
         del block, out, ref, got
     main = timed["wake-up"]
     print(f"dfl: weighted_mix launches over the seven methods' card runs: {launches}")
@@ -2420,12 +2496,13 @@ def main() -> int:
     print(f"build: {', '.join(f'{n}.cu' for n in SOURCES)} for sm_90a, "
           f"in parallel, in {time.perf_counter() - t0:.1f} s")
     for name in SOURCES:
-        if name == "flash_decode":
+        if name in ("flash_decode", "weighted_mix"):
             continue
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build: {name}:", line.strip())
     report_flash_decode_build(logs["flash_decode"])
+    report_weighted_mix_build(logs["weighted_mix"])
 
     # the one-rank client group the per-rank mixer runs over
     with socket.socket() as sock:

@@ -38,10 +38,12 @@ CUDA tensor is the hand-written kernel:
   buffer with uniform weights and the neighbourhood as ``mask``.
 
 The engine counts its aggregations (:attr:`RunResult.aggregations`), one
-launch each.  The host keeps the event heap, the numpy RNG, the link
-periods and the fingerprint tables, and draws from the RNG in the
-reference's order, so one ``seed`` gives the reference's event sequence
-and ``local_train`` seeds.
+launch each.  Their weights (and DFL-DDS's mask) stay on the host as f32
+tensors, and the kernel carries them in its launch's parameters, so an
+aggregation copies nothing to the device.  The host keeps the event
+heap, the numpy RNG, the link periods and the fingerprint tables, and
+draws from the RNG in the reference's order, so one ``seed`` gives the
+reference's event sequence and ``local_train`` seeds.
 
 **Two parity facts, stated, not faults.**
 
@@ -296,14 +298,15 @@ class _Recorder:
 
     def mix(self, models: torch.Tensor, weights, *, out: torch.Tensor,
             mask=None) -> None:
-        """One aggregation: ``out`` ← Σ_k w_k·models[k] (host weights are
-        rounded to f32 on the models' device), in an ``engine.aggregate``
-        span."""
+        """One aggregation: ``out`` ← Σ_k w_k·models[k], in an
+        ``engine.aggregate`` span.  The weights and any mask stay on the
+        host as f32 tensors: ``weighted_mix`` renormalizes there and
+        carries the weights in its launch, so nothing waits for the
+        device."""
         with get_telemetry().span("engine.aggregate"):
-            dev = models.device
-            w = torch.as_tensor(weights, dtype=torch.float32).to(dev)
+            w = torch.as_tensor(weights, dtype=torch.float32)
             if mask is not None:
-                mask = torch.as_tensor(mask, dtype=torch.float32).to(dev)
+                mask = torch.as_tensor(mask, dtype=torch.float32)
             weighted_mix(models, w, mask=mask, out=out)
         self.aggregations += 1
 

@@ -59,12 +59,17 @@ def masked_weights(weights: torch.Tensor, mask=None) -> torch.Tensor:
     with a (K,) ``mask`` the surviving weights renormalized,
     ``w·m / Σ(w·m)``, and all zeros when nothing survives.  K scalar
     operations on the weights' device, with no read back to the host
-    (``repro/kernels/weighted_mix.py:110-114``)."""
+    (``repro/kernels/weighted_mix.py:110-114``).
+
+    The total is summed in f64 and rounded once to f32.  That sum is
+    exact while the surviving weights lie within 2^(28 − ⌈log2 K⌉) of the
+    largest, so host and device weights give the same bits whatever order
+    each device's reduction takes."""
     w = weights.float()
     if mask is None:
         return w
     eff = w * mask.to(device=w.device, dtype=torch.float32)
-    total = eff.sum()
+    total = eff.sum(dtype=torch.float64).float()
     return torch.where(total > 0, eff / torch.where(total > 0, total, 1.0),
                        torch.zeros_like(eff))
 

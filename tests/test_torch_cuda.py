@@ -945,7 +945,13 @@ def test_mamba2_run_batch_card_matches_cpu(cuda):
 # weighted_mix and the DFL engine
 # --------------------------------------------------------------------------
 
-WMIX_SHAPES = [(1, 1), (2, 127), (7, 50_890), (15, 4099), (100, 1000), (3, 2 ** 20 + 3)]
+#: (K, N), contiguous rows (row stride N): the engine's N 50,890 at K 7,
+#: 8, 15, 16 and 17 and 33 (around the fixed-K instantiations, up to 16,
+#: and the runtime K's groups of 8), and K 513, one over the host weights
+#: carried by value (they go by pointer)
+WMIX_SHAPES = [(1, 1), (2, 127), (7, 50_890), (8, 50_890), (15, 50_890), (16, 50_890),
+               (17, 50_890), (33, 50_890), (15, 4099), (100, 1000), (513, 1000),
+               (3, 2 ** 20 + 3)]
 
 
 def _bits(t):
@@ -959,7 +965,9 @@ def test_weighted_mix_matches_plain_bit_for_bit(cuda, K, N, dtype, masked):
     """The kernel against weighted_mix_ref on the card, bit for bit: both
     sum from zero in the order k = 0 … K−1 with each product rounded to
     f32, and both renormalize a mask with the same device operations; an
-    all-masked stack is zeros."""
+    all-masked stack is zeros.  The same weights and mask from the host
+    (carried in the launch up to K 512, copied beyond) give the same
+    bits."""
     from repro_torch.kernels.ref import weighted_mix_ref
     from repro_torch.kernels.weighted_mix import weighted_mix
     gen = torch.Generator(device=cuda).manual_seed(K * 7919 + N)
@@ -973,11 +981,13 @@ def test_weighted_mix_matches_plain_bit_for_bit(cuda, K, N, dtype, masked):
             mask.zero_()
     before = weighted_mix.launches
     out = weighted_mix(models, w, mask=mask)
+    host = weighted_mix(models, w.cpu(), mask=None if mask is None else mask.cpu())
     torch.cuda.synchronize()
-    assert weighted_mix.launches == before + 1
+    assert weighted_mix.launches == before + 2
     ref = weighted_mix_ref(models, w, mask)
     assert out.dtype == dtype and out.shape == (N,)
     assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(host), _bits(out))
     if masked == "all":
         assert not out.any()
 
@@ -1003,6 +1013,38 @@ def test_weighted_mix_strided_views_and_aliased_out(cuda, dtype):
         assert torch.equal(_bits(view[2]), _bits(want))
 
 
+@pytest.mark.parametrize("dtype,pad", [(torch.float32, 4), (torch.float32, 1),
+                                       (torch.float32, 2), (torch.bfloat16, 1),
+                                       (torch.bfloat16, 4), (torch.bfloat16, 2),
+                                       (torch.bfloat16, 6)])
+def test_weighted_mix_row_strides_off_the_grid(cuda, dtype, pad):
+    """Rows of the engine's N 50,890 read as a view ``pad`` elements
+    narrower than their stride, so that the row stride is 8 (as the
+    engine's own rows) or 4 bytes off the 16-byte grid or on it (f32 pads
+    4, 1, 2), or 2, 4, 8 bytes off or on it (bf16 pads 1, 4, 2, 6): each
+    takes the widest load the layout allows, bit for bit with the plain
+    version, with host and device weights, unmasked and masked, and into a
+    row of the view."""
+    from repro_torch.kernels.ref import weighted_mix_ref
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    gen = torch.Generator(device=cuda).manual_seed(pad)
+    N = 50_890
+    for K in (7, 17):
+        view = _rand(gen, K, N + pad, dtype=dtype)[:, :N]
+        w = torch.rand((K,), generator=gen, device=cuda)
+        mask = (torch.rand((K,), generator=gen, device=cuda) < 0.5).float()
+        mask[0] = 1.0
+        for m in (None, mask):
+            want = weighted_mix_ref(view.contiguous(), w, m)
+            for weights, mm in ((w, m), (w.cpu(), None if m is None else m.cpu())):
+                assert torch.equal(_bits(weighted_mix(view, weights, mask=mm)), _bits(want))
+        want = weighted_mix_ref(view.contiguous(), w)
+        out = weighted_mix(view, w.cpu(), out=view[3])
+        torch.cuda.synchronize()
+        assert out.data_ptr() == view[3].data_ptr()
+        assert torch.equal(_bits(view[3]), _bits(want))
+
+
 def test_weighted_mix_rejects_bad_layouts(cuda):
     from repro_torch.kernels.weighted_mix import weighted_mix
     m = torch.zeros((3, 64), device=cuda)
@@ -1013,8 +1055,15 @@ def test_weighted_mix_rejects_bad_layouts(cuda):
         weighted_mix(m.half(), w)
     with pytest.raises(ValueError, match="adjacent columns"):
         weighted_mix(torch.zeros((64, 3), device=cuda).t(), w)
-    with pytest.raises(ValueError, match="weights on cpu"):
-        weighted_mix(m, w.cpu())
+    with pytest.raises(ValueError, match="mask on cpu, weights on cuda"):
+        weighted_mix(m, w, mask=torch.ones(3))
+    with pytest.raises(ValueError, match="mask on cuda:0, weights on cpu"):
+        weighted_mix(m, w.cpu(), mask=torch.ones((3,), device=cuda))
+    # host weights are the engine's path: accepted, the device weights' bits
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    models = _rand(gen, 3, 64)
+    wr = torch.rand((3,), generator=gen, device=cuda)
+    assert torch.equal(_bits(weighted_mix(models, wr.cpu())), _bits(weighted_mix(models, wr)))
     with pytest.raises(ValueError, match="out must be"):
         weighted_mix(m, w, out=torch.zeros((64,), device=cuda, dtype=torch.bfloat16))
 

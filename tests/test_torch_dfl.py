@@ -29,7 +29,8 @@ from repro_torch.core.dfl import (METHOD_REGISTRY, Engine, MethodSpec, RunResult
                                   resolve_method, run_gossip)
 from repro_torch.data import noniid, synthetic
 from repro_torch.kernels.ref import weighted_mix_ref
-from repro_torch.kernels.weighted_mix import weighted_mix
+from repro_torch.kernels.weighted_mix import (BLOCK_SIZES, MAX_BY_VALUE, THREADS_PER_SM,
+                                              launch_plan, weighted_mix)
 from repro_torch.models.convert import task_params_from_jax
 from repro_torch.models.small import MLPTask
 
@@ -155,6 +156,124 @@ def test_weighted_mix_rejects_bad_inputs():
         weighted_mix(torch.zeros(10), torch.ones(10))
     with pytest.raises(ValueError, match="mask on meta"):
         weighted_mix(m, torch.ones(3), mask=torch.ones(3, device="meta"))
+
+
+def test_weighted_mix_device_rules():
+    """Weights lie on the host or the models' device, and a mask on the
+    weights' device; host weights with a host mask are the plain path's
+    bits."""
+    m = torch.zeros(3, 10)
+    with pytest.raises(ValueError, match="weights on meta, models on cpu"):
+        weighted_mix(m, torch.ones(3, device="meta"))
+    with pytest.raises(ValueError, match="mask on meta, weights on cpu"):
+        weighted_mix(m, torch.ones(3), mask=torch.ones(3, device="meta"))
+    rng = np.random.default_rng(3)
+    models = torch.from_numpy(rng.normal(size=(5, 77)).astype(np.float32))
+    w = torch.from_numpy(rng.random(5).astype(np.float32))
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0])
+    assert torch.equal(weighted_mix(models, w, mask=mask),
+                       weighted_mix_ref(models, w, mask))
+
+
+def test_masked_weights_total_is_order_free():
+    """The renormalizing total is summed in f64 and rounded once, so it
+    does not depend on the order of the reduction: reversed and shuffled
+    weights give the same total, and so the same bits, as the original."""
+    from repro_torch.kernels.ref import masked_weights
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.random(100).astype(np.float32))
+    mask = torch.from_numpy((rng.random(100) < 0.5).astype(np.float32))
+    got = masked_weights(w, mask)
+    for order in (torch.arange(99, -1, -1), torch.from_numpy(rng.permutation(100))):
+        assert torch.equal(masked_weights(w[order], mask[order]), got[order])
+    eff = w * mask
+    assert torch.equal(got, eff / eff.double().sum().float())
+
+
+#: the DFL engine's row stride: rows of N f32, 8 bytes off the 16-byte grid
+ENGINE_N = 50_890
+H100_SMS = 132
+
+
+def _covered(plan, N):
+    """Elements written by the kernel's index walk under ``plan`` (its
+    grid-stride loop over VEC-wide groups, then the scalar tail)."""
+    hits = np.zeros(N, np.int64)
+    stride, groups = plan.blocks * plan.threads, N // plan.vec
+    for t in range(stride):
+        for g in range(t, groups, stride):
+            hits[g * plan.vec:(g + 1) * plan.vec] += 1
+        if plan.vec > 1:
+            hits[groups * plan.vec + t::stride] += 1
+    return hits
+
+
+@pytest.mark.parametrize("case,K,N,itemsize,stride,base,out,host,want", [
+    # (vec, threads, blocks, by_value)
+    ("wake-up", 7, ENGINE_N, 4, ENGINE_N, 0x7f0000000000, 0x7f0000100000, True,
+     (2, 128, 199, True)),
+    ("wake-up, device weights", 7, ENGINE_N, 4, ENGINE_N, 0x7f0000000000,
+     0x7f0000100000, False, (2, 128, 199, False)),
+    ("chord", 15, ENGINE_N, 4, ENGINE_N, 0x7f0000000000, 0x7f0000100000, True,
+     (2, 128, 199, True)),
+    ("fedavg", 100, ENGINE_N, 4, ENGINE_N, 0x7f0000000000, 0x7f0000100000, True,
+     (2, 128, 199, True)),
+    ("over the by-value struct", MAX_BY_VALUE + 1, ENGINE_N, 4, ENGINE_N,
+     0x7f0000000000, 0x7f0000100000, True, (2, 128, 199, False)),
+    ("padded rows", 7, ENGINE_N, 4, ENGINE_N + 2, 0x7f0000000000, 0x7f0000100000, True,
+     (4, 64, 199, True)),
+    ("bandwidth", 7, 2 ** 26, 4, 2 ** 26, 0x7f0000000000, 0x7f4000000000, True,
+     (4, 256, H100_SMS * THREADS_PER_SM // 256, True)),
+    ("odd f32 stride", 7, ENGINE_N, 4, ENGINE_N + 1, 0x7f0000000000, 0x7f0000100000,
+     True, (1, 256, 199, True)),
+    ("out 4 bytes off", 7, ENGINE_N, 4, ENGINE_N + 2, 0x7f0000000000, 0x7f0000100004,
+     True, (1, 256, 199, True)),
+    ("bf16 aligned", 7, ENGINE_N, 2, ENGINE_N + 6, 0x7f0000000000, 0x7f0000100000, True,
+     (8, 32, 199, True)),
+    ("bf16 8 bytes off", 7, ENGINE_N, 2, ENGINE_N + 2, 0x7f0000000000, 0x7f0000100000,
+     True, (4, 64, 199, True)),
+    ("bf16 4 bytes off", 7, ENGINE_N, 2, ENGINE_N, 0x7f0000000000, 0x7f0000100000, True,
+     (2, 128, 199, True)),
+    ("bf16 2 bytes off", 7, ENGINE_N, 2, ENGINE_N + 1, 0x7f0000000000, 0x7f0000100000,
+     True, (1, 256, 199, True)),
+    ("one row, odd stride", 1, ENGINE_N, 4, 3, 0x7f0000000000, 0x7f0000100000, True,
+     (4, 64, 199, True)),
+    ("one element", 3, 1, 4, 1, 0x7f0000000000, 0x7f0000100000, True,
+     (1, 32, 1, True)),
+])
+def test_weighted_mix_launch_plan(case, K, N, itemsize, stride, base, out, host, want):
+    """The launch plan at the engine's shapes (H100, 132 SMs): the widest
+    load the base, row stride and output allow (8 bytes at the engine's
+    f32 rows), a block on every SM at the wake-up, the grid-stride cap at
+    N 2^26, host weights by value up to MAX_BY_VALUE."""
+    plan = launch_plan(K, N, itemsize, stride, base, out, H100_SMS, host)
+    assert (plan.vec, plan.threads, plan.blocks, plan.by_value) == want, case
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_weighted_mix_launch_plan_covers_every_element(itemsize):
+    """Over ragged N, strides and addresses: the load width divides the
+    base, the output and the row stride's bytes and is at most 16 bytes,
+    the block is one of BLOCK_SIZES, the grid is at least one block an SM
+    whenever the smallest block allows it, and the kernel's index walk
+    writes every element exactly once."""
+    rng = np.random.default_rng(itemsize)
+    for _ in range(60):
+        K = int(rng.integers(1, 40))
+        N = int(rng.integers(1, 6000))
+        stride = N + int(rng.integers(0, 9))
+        base = 0x7f0000000000 + itemsize * int(rng.integers(0, 8))
+        out = 0x7f1000000000 + itemsize * int(rng.integers(0, 8))
+        sms = int(rng.integers(1, 40))
+        plan = launch_plan(K, N, itemsize, stride, base, out, sms, bool(rng.integers(2)))
+        width = plan.vec * itemsize
+        assert width <= 16 and base % width == 0 and out % width == 0
+        assert K == 1 or stride * itemsize % width == 0
+        assert plan.threads in BLOCK_SIZES
+        loads = -(-N // plan.vec)
+        assert plan.blocks >= min(sms, -(-loads // BLOCK_SIZES[-1]))
+        assert plan.blocks * plan.threads <= max(sms * THREADS_PER_SM, plan.threads)
+        assert (_covered(plan, N) == 1).all()
 
 
 # --------------------------------------------------------------------------
@@ -438,6 +557,27 @@ def test_engine_gossip_aggregation_shapes(tasks, monkeypatch):
     assert set(calls) == {(1 + D, task.num_params)}
     _, _, calls = _run_both(tasks, "fedavg", monkeypatch)
     assert set(calls) == {(task.num_clients, task.num_params)}
+
+
+@pytest.mark.parametrize("method", ["fedlay", "fedavg", "gaia", "dfl-dds"])
+def test_engine_hands_host_weights_to_weighted_mix(tasks, method, monkeypatch):
+    """Every aggregation hands ``weighted_mix`` its weights, and DFL-DDS
+    its mask, as f32 tensors on the host (the kernel carries them in its
+    launch), with the models and ``out`` on the task's device."""
+    task = tasks[0]
+    seen = []
+
+    def recording(models, weights, *, mask=None, out=None):
+        seen.append((weights.device.type, weights.dtype,
+                     None if mask is None else (mask.device.type, mask.dtype)))
+        assert models.device == out.device == task.device
+        return weighted_mix(models, weights, mask=mask, out=out)
+    monkeypatch.setattr(dfl, "weighted_mix", recording)
+    res = Engine().run(task, method, total_time=6.0, model_bytes=1000, seed=0)
+    assert len(seen) == res.aggregations > 0
+    masked = method == "dfl-dds"
+    assert set(seen) == {("cpu", torch.float32,
+                          ("cpu", torch.float32) if masked else None)}
 
 
 def test_engine_obs_plane(tasks):
