@@ -329,10 +329,10 @@ def report_flash_decode_build(log: str) -> None:
     check(DECODE_MAIN <= seen, f"ptxas reported no {DECODE_MAIN - seen}")
 
 
-#: weighted_mix_kernel's instantiation on the main path: (dtype, VEC, K,
+#: weighted_mix_kernel's instantiation on the main path: (dtype, VEC,
 #: weights), the engine's wake-up (f32 rows 8 bytes off the 16-byte grid,
-#: fedlay's K 7 at L = 3, host weights carried in the launch)
-WMIX_MAIN = ("f32", 2, 7, "by value")
+#: host weights carried in the launch)
+WMIX_MAIN = ("f32", 2, "by value")
 
 
 def report_weighted_mix_build(log: str) -> None:
@@ -352,18 +352,17 @@ def report_weighted_mix_build(log: str) -> None:
             spills = (int(m[1]), int(m[2]))
         m = re.search(r"Used (\d+) registers", line)
         t = entry and re.search(
-            r"weighted_mix_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E.*?(ByValue|ByPointer)",
-            entry)
+            r"weighted_mix_kernelI(f|13__nv_bfloat16)Li(\d+)E.*?(ByValue|ByPointer)", entry)
         if m and t:
-            key = ("f32" if t[1] == "f" else "bf16", int(t[2]), int(t[3]),
-                   "by value" if t[4] == "ByValue" else "by pointer")
+            key = ("f32" if t[1] == "f" else "bf16", int(t[2]),
+                   "by value" if t[3] == "ByValue" else "by pointer")
             found[key] = (int(m[1]), *spills)
     check(WMIX_MAIN in found, f"ptxas reported no weighted_mix_kernel {WMIX_MAIN}")
     regs, stores, loads = found[WMIX_MAIN]
     check(stores == loads == 0, f"the main path's weighted_mix_kernel spills {stores} / "
                                 f"{loads} B")
     print(f"build: weighted_mix_kernel: {len(found)} instantiations (dtype x load width "
-          f"x K 1-16 and runtime K x weights by value or pointer), at most "
+          f"x weights by value or pointer), at most "
           f"{max(r for r, _, _ in found.values())} registers, spill stores "
           f"{sum(v[1] for v in found.values())} B, loads "
           f"{sum(v[2] for v in found.values())} B in all; main path <{', '.join(map(str, WMIX_MAIN))}>: "
@@ -2213,9 +2212,9 @@ DFL_CARD_TOL = 1e-4
 
 def check_weighted_mix(torch):
     """weighted_mix against weighted_mix_ref on the card, bit for bit:
-    f32 and bf16, K in {1, 2, 7, 15, 16, 17, 100, 513} (the fixed-K
-    instantiations up to 16, the runtime K's groups of 8, and one K over
-    the host weights carried by value), N in {1, 127, 50,890, 2^24 + 3}
+    f32 and bf16, K in {1, 2, 7, 15, 16, 17, 100, 513} (around the
+    groups of 8 rows, and one K over the host weights carried by value),
+    N in {1, 127, 50,890, 2^24 + 3}
     (K 513 up to 50,890), with no mask, a mask, and every model masked
     (zeros); the same weights and mask from the host, bit for bit with the
     device's; the same models as a row-strided view (on the 16-byte grid

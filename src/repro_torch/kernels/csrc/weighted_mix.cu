@@ -17,17 +17,16 @@
 // in a few memory latencies, so the design cuts the trips a thread makes
 // to memory and the launch's own waits:
 //
-// - One trip a thread.  A thread loads its elements of every row before
-//   the first add, then sums them in order.  K up to MAX_FIXED_K is a
-//   template constant (a switch over the instantiations), so all K loads
-//   are in flight at once; a larger K runs groups of GROUP rows, each
-//   group's loads in flight together, the groups in order.  The launch
-//   bounds give ptxas the registers to hold them (MIN_BLOCKS).
+// - One trip a thread.  A thread loads its elements of GROUP rows before
+//   the first add, then sums them in order; K runs as full groups of
+//   GROUP rows and one remainder group (an instantiation for each
+//   remainder size, so its loads too are in flight together), the groups
+//   in order.  At K <= GROUP that is one trip.  The launch bounds give
+//   ptxas the registers to hold a group (MIN_BLOCKS).
 // - Weights in the launch.  Weights from the host are passed by value in
-//   the kernel's parameters (ByValue: K floats for a fixed K, else
-//   MAX_BY_VALUE floats, 2 KB of the 4 KB a launch takes), read from
-//   the constant bank with no dependent load and no copy to the device
-//   before the launch.  Weights on the device are read through a pointer
+//   the kernel's parameters (ByValue: MAX_BY_VALUE floats, 2 KB of the
+//   4 KB a launch takes), read from the constant bank with no dependent
+//   load and no copy to the device before the launch.  Weights on the device are read through a pointer
 //   (ByPointer, __ldg), with K as a runtime value.
 // - A grid that fills the card.  The wrapper's launch plan
 //   (kernels/weighted_mix.py:launch_plan) picks the widest load that
@@ -53,11 +52,9 @@ constexpr int MAX_THREADS = 256;  // the plan's largest block
 // thread near 32 registers: it placed the first adds among a group's
 // loads and reloaded into the registers they freed, so the later rows'
 // loads waited for the first row's (two trips at K 7, one a row in the
-// runtime K's groups).  With it, every load of a group issues before the
-// first add.
+// groups).  With it, every load of a group issues before the first add.
 constexpr int MIN_BLOCKS = 2;
-constexpr int MAX_FIXED_K = 16;   // the largest K with its own instantiation
-constexpr int GROUP = 8;          // rows a trip above MAX_FIXED_K
+constexpr int GROUP = 8;          // rows a trip
 constexpr int MAX_BY_VALUE = 512; // host weights carried in the launch up to this K
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -98,7 +95,7 @@ __device__ __forceinline__ void mix_group(const T* p, long long row_stride, cons
   }
 }
 
-// The remainder group of a runtime K: G = rem, one instantiation each.
+// The remainder group: G = rem, one instantiation each.
 template <int G, typename T, int VEC, typename W>
 __device__ __forceinline__ void mix_rest(const T* p, long long row_stride, const W& w, int k0,
                                          int rem, float (&acc)[VEC]) {
@@ -108,26 +105,21 @@ __device__ __forceinline__ void mix_rest(const T* p, long long row_stride, const
   }
 }
 
-// Sums the K rows of the VEC elements at p into acc (from zero).  KC is
-// K itself, or 0 for a runtime K.
-template <int KC, typename T, int VEC, typename W>
+// Sums the K rows of the VEC elements at p into acc (from zero).
+template <typename T, int VEC, typename W>
 __device__ __forceinline__ void mix_rows(const T* p, long long row_stride, const W& w, int K,
                                          float (&acc)[VEC]) {
 #pragma unroll
   for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-  if constexpr (KC > 0) {
-    mix_group<KC>(p, row_stride, w, 0, acc);
-  } else {
-    int k0 = 0;
-    for (; k0 + GROUP <= K; k0 += GROUP) mix_group<GROUP>(p, row_stride, w, k0, acc);
-    mix_rest<GROUP - 1>(p, row_stride, w, k0, K - k0, acc);
-  }
+  int k0 = 0;
+  for (; k0 + GROUP <= K; k0 += GROUP) mix_group<GROUP>(p, row_stride, w, k0, acc);
+  mix_rest<GROUP - 1>(p, row_stride, w, k0, K - k0, acc);
 }
 
 // Elements [VEC * g, VEC * g + VEC) for the groups g this thread owns;
 // then, with VEC > 1, the scalar tail [VEC * (N / VEC), N) one element a
 // thread.
-template <typename T, int VEC, int KC, typename W>
+template <typename T, int VEC, typename W>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 weighted_mix_kernel(const T* models, long long row_stride, const __grid_constant__ W w, T* out,
                     int K, long long N) {
@@ -137,7 +129,7 @@ weighted_mix_kernel(const T* models, long long row_stride, const __grid_constant
   for (long long g = first; g < groups; g += stride) {
     const long long j = g * VEC;
     float acc[VEC];
-    mix_rows<KC>(models + j, row_stride, w, K, acc);
+    mix_rows(models + j, row_stride, w, K, acc);
     Pack<T, VEC> o;
 #pragma unroll
     for (int v = 0; v < VEC; ++v) store(&o.x[v], acc[v]);
@@ -146,7 +138,7 @@ weighted_mix_kernel(const T* models, long long row_stride, const __grid_constant
   if constexpr (VEC > 1) {
     for (long long j = groups * VEC + first; j < N; j += stride) {
       float acc[1];
-      mix_rows<KC>(models + j, row_stride, w, K, acc);
+      mix_rows(models + j, row_stride, w, K, acc);
       store(out + j, acc[0]);
     }
   }
@@ -158,29 +150,11 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <typename T, int VEC, int KC, typename W>
+template <typename T, int VEC, typename W>
 cudaError_t go(const Launch& a, const T* models, T* out, const W& w) {
-  weighted_mix_kernel<T, VEC, KC, W>
+  weighted_mix_kernel<T, VEC, W>
       <<<a.blocks, a.threads, 0, a.stream>>>(models, a.row_stride, w, out, a.K, a.N);
   return cudaGetLastError();
-}
-
-template <int CAP> ByValue<CAP> by_value(const float* w, int K) {
-  ByValue<CAP> v{};
-  for (int k = 0; k < K; ++k) v.w[k] = w[k];
-  return v;
-}
-
-// Host weights: the instantiation of K itself up to MAX_FIXED_K, else the
-// runtime K with MAX_BY_VALUE floats carried.
-template <typename T, int VEC, int KC = 1>
-cudaError_t launch_by_value(const Launch& a, const T* models, T* out, const float* w) {
-  if constexpr (KC <= MAX_FIXED_K) {
-    if (a.K == KC) return go<T, VEC, KC>(a, models, out, by_value<KC>(w, KC));
-    return launch_by_value<T, VEC, KC + 1>(a, models, out, w);
-  } else {
-    return go<T, VEC, 0>(a, models, out, by_value<MAX_BY_VALUE>(w, a.K));
-  }
 }
 
 template <typename T, int VEC>
@@ -188,8 +162,12 @@ cudaError_t launch_vec(const Launch& a, const void* models, void* out, const flo
                        bool on_host) {
   const T* m = static_cast<const T*>(models);
   T* o = static_cast<T*>(out);
-  if (on_host) return launch_by_value<T, VEC>(a, m, o, w);
-  return go<T, VEC, 0>(a, m, o, ByPointer{w});
+  if (on_host) {
+    ByValue<MAX_BY_VALUE> v{};
+    for (int k = 0; k < a.K; ++k) v.w[k] = w[k];
+    return go<T, VEC>(a, m, o, v);
+  }
+  return go<T, VEC>(a, m, o, ByPointer{w});
 }
 
 template <typename T>

@@ -34,7 +34,6 @@ count.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import NamedTuple, Optional
 
@@ -156,8 +155,7 @@ def weighted_mix(models: torch.Tensor, weights: torch.Tensor, *,
                        _sm_count(dev.index), not w.is_cuda)
     w = w.contiguous() if plan.by_value else w.to(dev).contiguous()
     lib = _library()
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
+    with torch.cuda.device(dev):
         err = lib.weighted_mix(base, row_stride, w.data_ptr(), int(plan.by_value), out_ptr,
                                K, N, int(models.dtype == torch.bfloat16), plan.vec,
                                plan.threads, plan.blocks,

@@ -946,9 +946,9 @@ def test_mamba2_run_batch_card_matches_cpu(cuda):
 # --------------------------------------------------------------------------
 
 #: (K, N), contiguous rows (row stride N): the engine's N 50,890 at K 7,
-#: 8, 15, 16 and 17 and 33 (around the fixed-K instantiations, up to 16,
-#: and the runtime K's groups of 8), and K 513, one over the host weights
-#: carried by value (they go by pointer)
+#: 8, 15, 16 and 17 and 33 (around the kernel's groups of 8 rows and its
+#: remainder group), and K 513, one over the host weights carried by value
+#: (they go by pointer)
 WMIX_SHAPES = [(1, 1), (2, 127), (7, 50_890), (8, 50_890), (15, 50_890), (16, 50_890),
                (17, 50_890), (33, 50_890), (15, 4099), (100, 1000), (513, 1000),
                (3, 2 ** 20 + 3)]
