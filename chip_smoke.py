@@ -102,6 +102,12 @@ Phases, each printing its lines:
 
 Any failure raises, and the script exits non-zero without the result
 line.  Without CUDA, or outside a checkout, it exits 1 at once.
+
+``python3 chip_smoke.py --weighted-mix ROOT`` runs none of that: it times
+the ``weighted_mix`` of the checkout at ROOT (this one, or another
+unpacked beside it, such as the parent commit) at the DFL engine's
+wake-up shape, so that two checkouts are compared in one call by
+running it in turns (A, B, B, A), each turn its own process.
 """
 
 from __future__ import annotations
@@ -2418,6 +2424,8 @@ def phase_dfl(torch, card):
     from repro_torch.kernels.gather_mix import _sm_count
     from repro_torch.kernels.weighted_mix import launch_plan
     K = 1 + max(fedlay(n, DFL_SPACES).degrees().values())
+    check((K, N) == (WAKE_K, WAKE_N), f"the wake-up is ({K}, {N}), not the "
+                                      f"--weighted-mix turn's ({WAKE_K}, {WAKE_N})")
     gen = torch.Generator(device="cuda").manual_seed(23)
     timed = {}
     for label, (k, cols, width), reps in (
@@ -2469,12 +2477,54 @@ def phase_dfl(torch, card):
             "launches": launches, **main}
 
 
+#: the DFL engine's wake-up as ``phase_dfl`` meets it: fedlay's 1 + 6
+#: rows at L = 3 of the MLP's 50,890 f32, laid 50,890 floats apart
+WAKE_K, WAKE_N = 7, 50_890
+
+
+def weighted_mix_turn(torch, root: Path, card: str) -> None:
+    """One turn of ``--weighted-mix ROOT``: the wrapper of the checkout
+    at ROOT on the wake-up's block, bit for bit with that checkout's plain
+    version; device ms a call (``device_ms``, 200 calls) and the wrapper's
+    wall ms a call (``host_ms``, 1000 calls back to back), with device
+    weights and, where that wrapper takes them, host weights; and the
+    first call's wall time, which builds the kernel."""
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels.ref import weighted_mix_ref
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    block = torch.randn((WAKE_K, WAKE_N), generator=gen, device="cuda")
+    w = torch.rand((WAKE_K,), generator=gen, device="cuda")
+    w /= w.sum()
+    out = torch.empty(WAKE_N, device="cuda")
+    ref = weighted_mix_ref(block, w)
+    t0 = time.perf_counter()
+    weighted_mix(block, w, out=out)
+    torch.cuda.synchronize()
+    said = [f"first call {time.perf_counter() - t0:.1f} s"]
+    for kind, weights in (("host", w.cpu()), ("device", w)):
+        try:
+            got = weighted_mix(block, weights, out=out)
+        except ValueError:
+            said.append(f"{kind} weights refused")
+            continue
+        check(torch.equal(bits(got), bits(ref)), f"weighted_mix of {root} differs")
+        call = lambda: weighted_mix(block, weights, out=out)  # noqa: E731
+        said.append(f"{kind} weights: device {device_ms(torch, [call], 200):.6f} ms, "
+                    f"wall {host_ms(torch, call, 1000):.6f} ms")
+    print(f"weighted_mix turn {root} (K {WAKE_K}, N {WAKE_N}): " + "; ".join(said)
+          + f" ({card})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs one NVIDIA "
               "GPU", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--weighted-mix":
+        weighted_mix_turn(torch, Path(sys.argv[2]).resolve(), card_line())
+        return 0
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository",
               file=sys.stderr)
