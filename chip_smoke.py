@@ -83,20 +83,26 @@ Phases, each printing its lines:
    against ``gather_mix``, ``data_ptr``, peak memory), the codec-free
    per-rank round's losses beside, and ``dequant_accumulate`` at the
    round's shape against its plain version and two PyTorch calls;
-10. dfl: the paper's DFL engine, ``Engine.run`` over ``MLPTask`` at its
-   default width on MNIST's 28 x 28 input width (N = 50,890 f32), 100
-   clients dealt 3 label shards each: fedlay, fedlay-noconf, fedlay-sync
-   and Table III's fedavg, gaia, chord and dfl-dds, each aggregation one
-   ``weighted_mix`` launch, with its checks (launches equal to the
-   engine's aggregations, peak memory against its reckoning, fedlay's
-   accuracy rising, fedlay on the card against the same call on the
-   CPU), each method's wall time, accuracy, messages and suppressed
-   sends, where a fedlay run's host time goes and the mean of its
-   ``engine.aggregate`` span, and ``weighted_mix`` at the wake-up's shape
-   (in the engine's layout and with rows padded to 16 bytes) and at a
-   bandwidth shape, with host weights (the engine's) and device weights,
+10. dfl: the paper's DFL engine over Table III's three tasks, each
+   aggregation one ``weighted_mix`` launch: ``Engine.run`` over
+   ``MLPTask`` at its default width on MNIST's 28 x 28 input width (N =
+   50,890 f32), 100 clients dealt 3 label shards each, for fedlay,
+   fedlay-noconf, fedlay-sync and Table III's fedavg, gaia, chord and
+   dfl-dds; then over ``CNNTask`` on CIFAR-10's 32 x 32 x 3 input width
+   (N = 25,578, 100 clients x 3 label shards) and ``LSTMTask`` on 200
+   role streams, two a client (N = 27,936, 100 clients), each at its
+   defaults, for fedlay, fedavg, gaia, chord and dfl-dds.  For each task
+   the checks (launches equal to the engine's aggregations, peak memory
+   against its reckoning, cuDNN's workspace included, fedlay's accuracy
+   rising, fedlay on the card against the same call on the CPU), each
+   method's wall time, accuracy, messages and suppressed sends, where a
+   fedlay run's host time goes and the mean of its ``engine.aggregate``
+   span; one CNN and one LSTM ``local_train``'s host time, device time
+   and launches; and ``weighted_mix`` at each task's wake-up shape (the
+   MLP's also with rows padded to 16 bytes) and at a bandwidth shape,
+   with host weights (the engine's) and device weights, its load width,
    against its plain version, its bound and ``torch.matmul``, with the
-   wrapper's wall time a call at the wake-up;
+   wrapper's wall time a call at the MLP's wake-up;
 11. the ``kernels`` JSON line (all nine kernels), the card's name and
    power limit, and the result line ``{"ok": true, "device": {...}}``.
 
@@ -441,9 +447,10 @@ def phase_small(torch):
           f"{sum(map(len, done[1].values()))} tokens: card == CPU token for token")
 
 
-def profiled(torch, fn, repeats: int = 3):
+def profiled(torch, fn, repeats: int = 3, counts=None):
     """Host time of ``fn`` (mean of ``repeats`` synchronised calls), and
-    one profiled call's device time per kernel name, in ms."""
+    one profiled call's device time per kernel name, in ms; its launches
+    per kernel name go into ``counts`` where one is given."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -466,6 +473,8 @@ def profiled(torch, fn, repeats: int = 3):
             if us is None:
                 us = ev.self_cuda_time_total
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us / 1e3
+            if counts is not None:
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count
     return wall_ms, by_kernel
 
 
@@ -2214,6 +2223,29 @@ DFL_METHODS = ("fedlay", "fedlay-noconf", "fedlay-sync", "fedavg", "gaia", "chor
 #: over the run's local steps.  Set from the readings: 1.70e-05 in both
 #: H100 runs of this phase (NVIDIA H100 80GB HBM3, 700 W), so about 6x room.
 DFL_CARD_TOL = 1e-4
+#: the CNN's and the LSTM's methods: Table III's columns
+DFL_TASK_METHODS = ("fedlay", "fedavg", "gaia", "chord", "dfl-dds")
+#: their N at the paper's input widths and the tasks' defaults
+DFL_TASK_N = {"CNNTask": 25_578, "LSTMTask": 27_936}
+#: their fedlay runs, card against CPU: trace accuracies within ``flips``
+#: predictions, final models within ``tol`` x max|p|.  The CNN's run carries
+#: a rounding-size difference far (a max pool's winner or a ReLU's side
+#: flips, and the SGD steps part from there): read 7 of 1000 predictions
+#: and 2.38e-03 x max|p| against the CPU, and 18 and 2.46e-03 between two
+#: card runs whose initial vectors differ by 1e-7 (``spread``, printed in
+#: every run), so its limits are set with about 2x and 4x room on those.
+#: The LSTM's run is smooth: 0 predictions and 1.16e-07 x max|p| read,
+#: limit 1e-5.  Its CPU run takes one intra-op thread: its ops are small,
+#: and more threads only add their handoffs (NVIDIA H100 80GB HBM3, 700.00
+#: W; the readings of this phase before these limits were set).
+#: One local_train, card against CPU from the same vector, as a share of
+#: max|p| (``step_tol``): read 3.55e-08 (MLP) and 3.88e-08 (LSTM), limit
+#: 1e-6.  The CNN's gradient jumps where a max pool's two best inputs swap
+#: places, and cuDNN's weight gradient sums with atomics, so a card run may
+#: land on either side of such a near tie: read 7.17e-08 in one run of
+#: this phase and 2.03e-04 in another, limit 2e-3.
+DFL_TASK_CHECKS = {"CNNTask": dict(flips=40, tol=1e-2, step_tol=2e-3, spread=True),
+                   "LSTMTask": dict(flips=2, tol=1e-5, cpu_threads=1)}
 
 
 def check_weighted_mix(torch):
@@ -2270,13 +2302,83 @@ def check_weighted_mix(torch):
           f"row of the input): bit for bit with its plain version (tolerance 0)")
 
 
-def dfl_reckoned(task, method, n, N) -> tuple:
+def dfl_work(task) -> tuple:
+    """One local step's and one evaluation's device bytes beyond what the
+    task keeps resident (its data), reckoned from its shapes: the step's
+    8 flat vectors (its input copy, the gradient, the per-slice gradients
+    autograd scatters into flat buffers, lr·grad and the update) and its
+    batch's activations and their gradients, and one evaluation's
+    activations at their largest.  A max pool's output is counted at 12
+    bytes an element, with its int64 argmax.  Returns (bytes, what)."""
+    f, b = 4 * task.num_params, task.batch
+    name = type(task).__name__
+    if name == "CNNTask":
+        c, side, n = task.ch, task._xte.shape[-1], task._xte.shape[0]
+        q, r = side // 2, side // 4
+        # forward over the batch: x, conv1 (ReLU in place), pool1 + argmax,
+        # conv2, pool2 + argmax, the NHWC copy, logits; as much again back
+        step = 2 * 4 * b * (3 * side * side + c * side * side + 3 * c * q * q
+                            + 2 * c * q * q + 3 * 2 * c * r * r + task.d_flat + task.k)
+        # the evaluation peaks at conv1's map beside pool1 and its argmax
+        evaluation = 4 * n * (c * side * side + 3 * c * q * q + task.d_flat + 2 * task.k)
+        return 8 * f + step + evaluation, "8 N x 4, a batch's maps x 2, the test set's conv1 map and pool1"
+    if name == "LSTMTask":
+        e, h, v, s = task.EMBED, task.hidden, task.vocab, task.seq
+        n = task._xte.shape[0]
+        # forward over the batch: the window, the embeddings, e·wx and
+        # + b, each step's z, h·wh, gates and states, the stacked h,
+        # logits and log-probabilities; as much again back
+        step = 8 * b * (s + 1) + 2 * 4 * b * s * (e + 2 * 4 * h + 2 * 4 * h + 9 * h
+                                                  + h + 2 * v)
+        evaluation = 4 * n * s * (e + 2 * 4 * h + 2 * h + 2 * v) + 4 * n * (2 * 4 * h + 9 * h)
+        return 8 * f + step + evaluation, "8 N x 4, a batch's steps x 2, one evaluation"
+    n = task._xte.shape[0]
+    work = (8 * f + 4 * b * (task.d_in + 2 * task.hidden + 2 * task.k)
+            + 4 * n * (3 * task.hidden + task.k))
+    return work, "8 N x 4, a batch's activations, one evaluation"
+
+
+def conv_workspace(torch, task) -> int:
+    """cuDNN's convolution workspace, which passes through the caching
+    allocator and so lands in the peak: the most that one of the CNN's
+    convolutions, run alone at the phase's shapes (each layer's forward
+    over the test set, as an evaluation runs it, and its forward and
+    backward over a batch, as a local step runs them), allocates beyond
+    the tensors it leaves behind.  Measured so, as no API reports the
+    size of the workspace cuDNN's heuristics pick.  0 for other tasks."""
+    import torch.nn.functional as F
+    if type(task).__name__ != "CNNTask":
+        return 0
+    t = task.unflatten(task.init_params(0))
+    side, most = task._xte.shape[-1], 0
+    for i, (conv, bias) in enumerate((("c1", "b1"), ("c2", "b2"))):
+        w = t[conv].permute(3, 2, 0, 1).detach().requires_grad_(True)
+        bb = t[bias].detach().requires_grad_(True)
+        hw = side >> i
+        for rows, train in ((task._xte.shape[0], False), (task.batch, True)):
+            x = torch.randn((rows, w.shape[1], hw, hw), device="cuda",
+                            requires_grad=train and i > 0)
+            g = torch.randn((rows, w.shape[0], hw, hw), device="cuda") if train else None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.set_grad_enabled(train):
+                y = F.conv2d(x, w, bb, padding=1)
+                if train:
+                    y.backward(g)
+            torch.cuda.synchronize()
+            kept = torch.cuda.memory_allocated() - base     # y and the gradients
+            most = max(most, torch.cuda.max_memory_allocated() - base - kept)
+            del x, g, y
+            w.grad = bb.grad = None
+    return most
+
+
+def dfl_reckoned(task, method, n, N, workspace=0) -> tuple:
     """The device bytes a run of ``method`` adds to what is allocated
-    before it: the engine's buffers, plus one local step's working set
-    (its input copy, the gradient, the per-slice gradients autograd
-    scatters into flat buffers, lr·grad and the update: 8 flat vectors,
-    and the batch's rows and activations) and one evaluation's
-    activations (x_te·w1, + b1, relu, logits).  Returns (bytes, what)."""
+    before it: the engine's buffers, plus the task's local step and
+    evaluation (``dfl_work``) and cuDNN's workspace (``conv_workspace``).
+    Returns (bytes, what)."""
     from repro_torch.core.dfl import resolve_method
     spec = resolve_method(method)
     f = 4 * N
@@ -2290,29 +2392,195 @@ def dfl_reckoned(task, method, n, N) -> tuple:
         engine, what = n * f + 4 * f, "n N x 4 local models + 4 N x 4 regions"
     else:
         engine, what = 2 * n * f + f, "2 n N x 4 client buffers + N x 4"
-    n_test = len(task.data.y_test)
-    work = (8 * f + 4 * task.batch * (task.d_in + 2 * task.hidden + 2 * task.k)
-            + 4 * n_test * (3 * task.hidden + task.k))
-    return engine + work, what
+    work, done = dfl_work(task)
+    what = f"{what}; {done}"
+    if workspace:
+        what += f"; cuDNN's workspace {workspace / 1e6:.3f} MB"
+    return engine + work + workspace, what
+
+
+def dfl_task_runs(torch, card, task, cpu_task, methods, kw, *, tol, flips=2,
+                  step_tol=1e-6, spread=False, cpu_threads=None) -> int:
+    """Engine.run over ``task`` for each of ``methods``, with its checks:
+    first one local_train and one evaluation on the card against the same
+    on ``cpu_task`` from the same vector (within ``step_tol`` x max|p|,
+    the same correct predictions); each aggregation one weighted_mix
+    launch (against the engine's count); each run's peak against its
+    reckoning; fedlay's mean accuracy rising; fedlay on the card against
+    the same call over ``cpu_task`` (counters and trace times equal,
+    accuracies within ``flips`` predictions, final models within ``tol``
+    x max|p|; with ``cpu_threads`` intra-op threads there).  The fedlay
+    run carries a telemetry bus, whose spans split its host time.  With
+    ``spread``, fedlay also runs on the card from the initial vector
+    scaled by 1 + 1e-7·N(0, 1), to show how far the run's own dynamics
+    carry a difference of rounding size.  Returns the launches of the
+    methods' runs."""
+    import numpy as np
+    from repro_torch.core.dfl import Engine
+    from repro_torch.kernels.weighted_mix import weighted_mix
+    from repro_torch.obs.events import Telemetry
+    name, n, N = type(task).__name__, task.num_clients, task.num_params
+    predictions = cpu_task._yte.numel()
+    # a warm-up local step and evaluation, so that what is allocated before
+    # each run holds cuBLAS's workspaces: one for each thread that runs
+    # products, the caller's and autograd's; it is also the one-step check
+    before = torch.cuda.memory_allocated()
+    p0 = task.init_params(0)
+    got = task.local_train(p0, 0, seed=0)
+    acc = task.evaluate(got)
+    torch.cuda.synchronize()
+    print(f"dfl: {name}: a warm-up local step and evaluation keep "
+          f"{(torch.cuda.memory_allocated() - before) / 2 ** 20:.3f} MiB allocated")
+    want = cpu_task.local_train(p0.cpu(), 0, seed=0)
+    scale = want.abs().max().item()
+    err = (got.cpu() - want).abs().max().item()
+    right, cpu_right = round(acc * predictions), round(cpu_task.evaluate(got.cpu()) * predictions)
+    check(err <= step_tol * scale and right == cpu_right,
+          f"{name}: one local_train on the card is {err / scale:.2e} x max|p| off the "
+          f"CPU's, and its evaluation counts {right} right against {cpu_right}")
+    print(f"dfl: {name}: one local_train, card against CPU from the same vector: "
+          f"within {err / scale:.2e} x max|p| (limit {step_tol:g}); its evaluation "
+          f"{right} of {predictions} right on both")
+    workspace = conv_workspace(torch, task)
+    if workspace:
+        print(f"dfl: {name}: cuDNN's convolution workspace, its largest over the "
+              f"convolutions run alone at the phase's shapes: {workspace / 1e6:.3f} MB")
+    launches, fed, bus = 0, None, Telemetry()
+    for method in methods:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reckoned, what = dfl_reckoned(task, method, n, N, workspace)
+        weighted_mix.launches = 0
+        t0 = time.perf_counter()
+        res = Engine().run(task, method, **kw,
+                           **(dict(telemetry=bus) if method == "fedlay" else {}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        count = weighted_mix.launches
+        peak = torch.cuda.max_memory_allocated() - base
+        check(count == res.aggregations > 0,
+              f"{name} {method}: weighted_mix launches {count} != the engine's "
+              f"{res.aggregations} aggregations")
+        check(peak <= reckoned * (1 + PEAK_MARGIN),
+              f"{name} {method}: peak {peak} bytes over the reckoned {reckoned} x "
+              f"{1 + PEAK_MARGIN}")
+        launches += count
+        first, last = res.trace[0].mean_acc, res.trace[-1].mean_acc
+        print(f"dfl: {name}: {method}: {wall:.2f} s wall; mean accuracy {first:.4f} -> "
+              f"{last:.4f} at t = {res.trace[-1].time:g}; {res.messages_per_client:.2f} "
+              f"messages a client, {res.suppressed_sends} suppressed sends, "
+              f"{res.local_steps_per_client:.2f} local trainings a client; "
+              f"weighted_mix launches {count} = {res.aggregations} aggregations; peak "
+              f"{peak / 1e6:.3f} MB over the {base / 1e6:.3f} MB before, reckoned "
+              f"{reckoned / 1e6:.3f} MB ({what}) ({card})")
+        if method == "fedlay":
+            check(last > first, f"{name}: fedlay's mean accuracy {last} did not rise "
+                                f"above {first}")
+            res.final_params = [p.cpu() for p in res.final_params]
+            fed, fed_ms = res, wall * 1e3
+        del res
+
+    # where the fedlay run's host time went (host spans of the engine)
+    parts = {span: bus.histograms[f"engine.{span}.ms"] for span in
+             ("local_train", "fingerprint", "aggregate", "evaluate")}
+    spent = sum(h.total for h in parts.values())
+    print(f"breakdown: {name}: the fedlay run, {fed_ms:.1f} ms host: " + "; ".join(
+        f"{span} {h.total:.1f} ms ({100 * h.total / fed_ms:.1f} %, {h.count} x "
+        f"{h.mean:.3f} ms)" for span, h in parts.items())
+        + f"; the rest (sends, heap, weights) {fed_ms - spent:.1f} ms ({card})")
+    agg = parts["aggregate"]
+    print(f"dfl: {name}: engine.aggregate mean {agg.mean:.4f} ms a call (min "
+          f"{agg.min:.4f}, max {agg.max:.4f}) over {agg.count} calls of the fedlay "
+          f"run ({card})")
+
+    def apart(a, b):
+        """The largest difference of two fedlay runs' trace accuracies, in
+        predictions, and of their final models, as a share of max|p|."""
+        flipped = max(np.abs(x.accs - y.accs).max() for x, y in zip(a.trace, b.trace))
+        top = max(p.abs().max().item() for p in b.final_params)
+        off = max((p.cpu() - q).abs().max().item()
+                  for p, q in zip(a.final_params, b.final_params))
+        return round(flipped * predictions), off / top
+
+    # fedlay on the CPU: the same call, seed and initial vector
+    threads = torch.get_num_threads()
+    torch.set_num_threads(cpu_threads or threads)
+    t0 = time.perf_counter()
+    try:
+        ref = Engine().run(cpu_task, "fedlay", **kw)
+    finally:
+        torch.set_num_threads(threads)
+    cpu_wall = time.perf_counter() - t0
+    for field in ("comm_bytes_per_client", "messages_per_client", "suppressed_sends",
+                  "local_steps_per_client", "aggregations"):
+        check(getattr(fed, field) == getattr(ref, field),
+              f"{name}: fedlay card and CPU differ in {field}: {getattr(fed, field)} / "
+              f"{getattr(ref, field)}")
+    check([r.time for r in fed.trace] == [r.time for r in ref.trace],
+          f"{name}: fedlay card and CPU trace times differ")
+    flipped, off = apart(fed, ref)
+    check(flipped <= flips and off <= tol,
+          f"{name}: fedlay card and CPU differ by {flipped} predictions and "
+          f"{off:.3e} x max|p|")
+    print(f"dfl: {name}: fedlay card against CPU ({cpu_wall:.2f} s there, "
+          f"{cpu_threads or threads} threads): bytes, "
+          f"messages, local steps, suppressed sends, aggregations and {len(fed.trace)} "
+          f"trace times equal; accuracies within {flipped} of {predictions} predictions "
+          f"(limit {flips}); final models within {off:.3e} x max|p| (limit {tol:g})")
+    if spread:
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        p1 = p0 * (1 + 1e-7 * torch.randn(p0.shape, generator=gen, device="cuda"))
+        moved = Engine().run(task, "fedlay", init_params=[p1] * n, **kw)
+        flipped, off = apart(moved, fed)
+        print(f"dfl: {name}: fedlay on the card from the initial vector x (1 + 1e-7 "
+              f"N(0, 1)) against the card's run: accuracies {flipped} of {predictions} "
+              f"predictions apart, final models {off:.3e} x max|p| apart")
+        del moved
+    del fed, ref
+    return launches
+
+
+def local_train_breakdown(torch, task, card) -> None:
+    """One local_train's host time against the device's busy time and its
+    device launches, from the profiler."""
+    p0 = task.init_params(0)
+    counts = {}
+    wall, kernels = profiled(torch, lambda: task.local_train(p0, 0, seed=0), counts=counts)
+    busy, launches = sum(kernels.values()), sum(counts.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    print(f"breakdown: {type(task).__name__}: one local_train ({task.local_steps} steps "
+          f"of batch {task.batch}): host {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f} %), {launches} device launches "
+          f"({launches / task.local_steps:.0f} a step, {1e3 * wall / launches:.1f} us of "
+          f"host a launch); top kernels (ms): " + "; ".join(
+              f"{k[:50]} {ms:.3f}" for k, ms in top) + f" ({card})")
 
 
 def phase_dfl(torch, card):
-    """The paper's DFL engine: Engine.run over MLPTask at its default width
-    on MNIST's 28 x 28 input width, 100 clients, for fedlay, its two
-    ablations and Table III's baselines, each aggregation one weighted_mix
-    launch; fedlay on the card against the same call on the CPU; where a
-    fedlay run's host time goes and the mean of its engine.aggregate span;
-    weighted_mix alone at the wake-up's shape, padded and at a bandwidth
-    shape, with host weights (the engine's) and device weights, and the
-    wrapper's wall time a call at the wake-up."""
-    import numpy as np
+    """The paper's DFL engine over its three tasks (Table III's columns),
+    each aggregation one weighted_mix launch: Engine.run over MLPTask at
+    its default width on MNIST's 28 x 28 input width (N = 50,890), 100
+    clients, for fedlay, its two ablations and Table III's baselines;
+    then over CNNTask at its defaults on CIFAR-10's 32 x 32 x 3 input
+    width (N = 25,578, 100 clients x 3 label shards) and over LSTMTask at
+    its defaults on 200 role streams of 1024 characters, two roles a
+    client (N = 27,936, 100 clients), for Table III's five methods.  For
+    each task: launches equal to the engine's aggregations, peak memory
+    within its reckoning, fedlay's accuracy rising, fedlay on the card
+    against the same call on the CPU, where a fedlay run's host time
+    goes and the mean of its engine.aggregate span; for the CNN and the
+    LSTM one local_train's host and device time and launches.  Then
+    weighted_mix alone at each task's wake-up shape (the MLP's also with
+    rows padded to 16 bytes) and at a bandwidth shape, with host weights
+    (the engine's) and device weights, its load width, and the wrapper's
+    wall time a call at the MLP's wake-up."""
     from repro_torch.core.baselines import fedlay
-    from repro_torch.core.dfl import Engine
-    from repro_torch.data import mnist_like, shard_partition
+    from repro_torch.data import char_lm, cifar_like, mnist_like, shard_partition
     from repro_torch.kernels.ref import weighted_mix_ref
     from repro_torch.kernels.weighted_mix import weighted_mix
-    from repro_torch.models.small import MLPTask
-    from repro_torch.obs.events import Telemetry
+    from repro_torch.models.small import CNNTask, LSTMTask, MLPTask
 
     data = mnist_like(n_train=6000, n_test=1000, image=28, seed=0)
     part = shard_partition(data.y_train, num_clients=DFL_CLIENTS,
@@ -2320,107 +2588,49 @@ def phase_dfl(torch, card):
     task = MLPTask(data, part, device="cuda")
     n, N = task.num_clients, task.num_params
     check(N == 50_890, f"the MLP has {N} parameters, not 50,890")
-    mb = 4 * N
-    kw = dict(total_time=DFL_TIME, model_bytes=mb, num_spaces=DFL_SPACES, seed=0)
+    kw = dict(total_time=DFL_TIME, num_spaces=DFL_SPACES, seed=0)
     print(f"dfl: Engine.run over MLPTask (784-64-10, batch {task.batch}, "
           f"{task.local_steps} local steps, lr {task.lr}) on mnist_like(6000, 1000, "
           f"image 28), {n} clients x {DFL_SHARDS} label shards, L = {DFL_SPACES}, "
           f"capacity periods (base 1), total time {DFL_TIME}; N = {N} f32 "
-          f"({mb / 1e3:.1f} KB)")
+          f"({4 * N / 1e3:.1f} KB)")
+    launches = dfl_task_runs(torch, card, task, MLPTask(data, part, device="cpu"),
+                             DFL_METHODS, dict(kw, model_bytes=4 * N), tol=DFL_CARD_TOL)
+    del task
 
-    # a warm-up local step and evaluation, so that what is allocated before
-    # each run holds cuBLAS's workspaces: one for each thread that runs
-    # products, the caller's and autograd's
-    before = torch.cuda.memory_allocated()
-    task.evaluate(task.local_train(task.init_params(0), 0, seed=0))
-    torch.cuda.synchronize()
-    print(f"dfl: a warm-up local step and evaluation keep "
-          f"{(torch.cuda.memory_allocated() - before) / 2 ** 20:.3f} MiB allocated")
-    launches = 0
-    for method in DFL_METHODS:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        reckoned, what = dfl_reckoned(task, method, n, N)
-        weighted_mix.launches = 0
-        t0 = time.perf_counter()
-        res = Engine().run(task, method, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        count = weighted_mix.launches
-        peak = torch.cuda.max_memory_allocated() - base
-        check(count == res.aggregations > 0,
-              f"{method}: weighted_mix launches {count} != the engine's "
-              f"{res.aggregations} aggregations")
-        check(peak <= reckoned * (1 + PEAK_MARGIN),
-              f"{method}: peak {peak} bytes over the reckoned {reckoned} x "
-              f"{1 + PEAK_MARGIN}")
-        launches += count
-        first, last = res.trace[0].mean_acc, res.trace[-1].mean_acc
-        print(f"dfl: {method}: {wall:.2f} s wall; mean accuracy {first:.4f} -> "
-              f"{last:.4f} at t = {res.trace[-1].time:g}; {res.messages_per_client:.2f} "
-              f"messages a client, {res.suppressed_sends} suppressed sends, "
-              f"{res.local_steps_per_client:.2f} local trainings a client; "
-              f"weighted_mix launches {count} = {res.aggregations} aggregations; peak "
-              f"{peak / 1e6:.3f} MB over the {base / 1e6:.3f} MB before, reckoned "
-              f"{reckoned / 1e6:.3f} MB ({what}, + one local step and one "
-              f"evaluation) ({card})")
-        if method == "fedlay":
-            check(last > first, f"fedlay's mean accuracy {last} did not rise above "
-                                f"{first}")
-            res.final_params = [p.cpu() for p in res.final_params]
-            fed = res
-        del res
-
-    # fedlay on the CPU: the same call, seed and initial vector
-    cpu = MLPTask(data, part, device="cpu")
+    images = cifar_like(n_train=6000, n_test=1000, image=32, seed=0)
+    part = shard_partition(images.y_train, num_clients=DFL_CLIENTS,
+                           shards_per_client=DFL_SHARDS, seed=0)
     t0 = time.perf_counter()
-    ref = Engine().run(cpu, "fedlay", **kw)
-    cpu_wall = time.perf_counter() - t0
-    for field in ("comm_bytes_per_client", "messages_per_client", "suppressed_sends",
-                  "local_steps_per_client", "aggregations"):
-        check(getattr(fed, field) == getattr(ref, field),
-              f"fedlay card and CPU differ in {field}: {getattr(fed, field)} / "
-              f"{getattr(ref, field)}")
-    check([r.time for r in fed.trace] == [r.time for r in ref.trace],
-          "fedlay card and CPU trace times differ")
-    acc_err = max(np.abs(a.accs - b.accs).max() for a, b in zip(fed.trace, ref.trace))
-    check(acc_err <= 2 / len(data.y_test), f"fedlay accuracies differ by {acc_err}")
-    scale = max(p.abs().max().item() for p in ref.final_params)
-    err = max((p - q).abs().max().item() for p, q in zip(fed.final_params, ref.final_params))
-    check(err <= DFL_CARD_TOL * scale, f"fedlay final models differ by {err} "
-                                       f"(max|p| {scale})")
-    print(f"dfl: fedlay card against CPU ({cpu_wall:.2f} s there): bytes, messages, "
-          f"local steps, suppressed sends, aggregations and {len(fed.trace)} trace "
-          f"times equal; accuracies within {acc_err:.4f} (limit 2/n_test); final "
-          f"models within {err:.3e} = {err / scale:.2e} x max|p| {scale:.4f} (limit "
-          f"{DFL_CARD_TOL:g} x max|p|)")
-    del fed, ref, cpu
+    text = char_lm(num_roles=2 * DFL_CLIENTS, stream_len=1024, test_len=8192, vocab=32,
+                   seed=0)
+    text_s = time.perf_counter() - t0
+    for task, cpu_task, said in (
+            (CNNTask(images, part, device="cuda"), CNNTask(images, part, device="cpu"),
+             "cifar_like(6000, 1000, image 32), 100 clients x 3 label shards"),
+            (LSTMTask(text, DFL_CLIENTS, device="cuda"),
+             LSTMTask(text, DFL_CLIENTS, device="cpu"),
+             f"char_lm(200 roles, stream 1024, test 8192, vocab 32; made in "
+             f"{text_s:.1f} s), two roles a client")):
+        name, size = type(task).__name__, task.num_params
+        check(size == DFL_TASK_N[name], f"{name} has {size} parameters, not "
+                                        f"{DFL_TASK_N[name]}")
+        print(f"dfl: Engine.run over {name} at its defaults (batch {task.batch}, "
+              f"{task.local_steps} local steps, lr {task.lr}) on {said}, L = "
+              f"{DFL_SPACES}, total time {DFL_TIME}; N = {size} f32 "
+              f"({4 * size / 1e3:.1f} KB)")
+        launches += dfl_task_runs(torch, card, task, cpu_task, DFL_TASK_METHODS,
+                                  dict(kw, model_bytes=4 * size), **DFL_TASK_CHECKS[name])
+        local_train_breakdown(torch, task, card)
+        del task, cpu_task
+    gc.collect()
 
-    # where one fedlay run's host time goes (host spans of the engine)
-    bus = Telemetry()
-    t0 = time.perf_counter()
-    res = Engine().run(task, "fedlay", telemetry=bus, **kw)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    parts = {name: bus.histograms[f"engine.{name}.ms"] for name in
-             ("local_train", "fingerprint", "aggregate", "evaluate")}
-    spent = sum(h.total for h in parts.values())
-    print(f"breakdown: one fedlay run, {wall:.1f} ms host: " + "; ".join(
-        f"{name} {h.total:.1f} ms ({100 * h.total / wall:.1f} %, {h.count} x "
-        f"{h.mean:.3f} ms)" for name, h in parts.items())
-        + f"; the rest (sends, heap, weights) {wall - spent:.1f} ms ({card})")
-    agg = parts["aggregate"]
-    print(f"dfl: engine.aggregate mean {agg.mean:.4f} ms a call (min {agg.min:.4f}, max "
-          f"{agg.max:.4f}) over {agg.count} calls of one fedlay run ({card})")
-    del res
-
-    # weighted_mix alone: the wake-up's (1 + D, N) block as the engine lays
-    # it out (rows 50,890 f32 apart, 8 bytes off the 16-byte grid: 8-byte
-    # loads), the same block with rows padded to 16 bytes (16-byte loads),
-    # and a bandwidth shape; each with the weights from the host, as the
-    # engine passes them (carried in the launch), and from the device
+    # weighted_mix alone: each task's wake-up (1 + D, N) block as the engine
+    # lays it out (the MLP's and the CNN's rows 8 bytes off the 16-byte
+    # grid: 8-byte loads; the LSTM's on it: 16-byte loads), the MLP's with
+    # rows padded to 16 bytes, and a bandwidth shape; each with the weights
+    # from the host, as the engine passes them (carried in the launch), and
+    # from the device
     from repro_torch.kernels.gather_mix import _sm_count
     from repro_torch.kernels.weighted_mix import launch_plan
     K = 1 + max(fedlay(n, DFL_SPACES).degrees().values())
@@ -2428,10 +2638,13 @@ def phase_dfl(torch, card):
                                       f"--weighted-mix turn's ({WAKE_K}, {WAKE_N})")
     gen = torch.Generator(device="cuda").manual_seed(23)
     timed = {}
-    for label, (k, cols, width), reps in (
-            ("wake-up", (K, N, N), 200),
-            ("padded wake-up", (K, N, -(-N // 4) * 4), 200),
-            ("bandwidth", (7, 2 ** 26, 2 ** 26), 20)):
+    for label, (k, cols, width), reps, load in (
+            ("wake-up", (K, N, N), 200, 8),
+            ("padded wake-up", (K, N, -(-N // 4) * 4), 200, 16),
+            ("CNNTask wake-up", (K, DFL_TASK_N["CNNTask"], DFL_TASK_N["CNNTask"]), 200, 8),
+            ("LSTMTask wake-up", (K, DFL_TASK_N["LSTMTask"], DFL_TASK_N["LSTMTask"]), 200,
+             16),
+            ("bandwidth", (7, 2 ** 26, 2 ** 26), 20, 16)):
         block = torch.randn((k, width), generator=gen, device="cuda")[:, :cols]
         w = torch.rand((k,), generator=gen, device="cuda")
         w /= w.sum()
@@ -2445,6 +2658,8 @@ def phase_dfl(torch, card):
         err = (got - ref).abs().max().item()
         plan = launch_plan(k, cols, 4, width, block.data_ptr(), out.data_ptr(),
                            _sm_count(0), True)
+        check(plan.vec * 4 == load, f"weighted_mix at the {label} shape loads "
+                                    f"{plan.vec * 4} bytes, not {load}")
         ms = device_ms(torch, [lambda: weighted_mix(block, w_host, out=out)], reps)
         dev_ms = device_ms(torch, [lambda: weighted_mix(block, w, out=out)], reps)
         plain_ms = device_ms(torch, [lambda: weighted_mix_ref(block, w)], max(1, reps // 10))
@@ -2457,11 +2672,11 @@ def phase_dfl(torch, card):
         print(f"dfl: weighted_mix f32 at the {label} shape K = {k}, N = {cols}, row "
               f"stride {width} ({plan.vec * 4}-byte loads, {plan.blocks} blocks of "
               f"{plan.threads}): bit for bit with its plain version, host and device "
-              f"weights; device time per call: kernel {ms:.4f} ms with host weights "
-              f"({100 * bound_ms / ms:.1f} % of the bound), {dev_ms:.4f} ms with device "
-              f"weights, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-              f"{(k + 1) * cols * 4 / 1e6:.1f} MB), torch.matmul(w, models) "
-              f"{lib_ms:.4f} ms ({card})")
+              f"weights; device time per call: kernel {ms:.6f} ms with host weights "
+              f"({100 * bound_ms / ms:.1f} % of the bound), {dev_ms:.6f} ms with device "
+              f"weights, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+              f"{(k + 1) * cols * 4 / 1e6:.3f} MB), torch.matmul(w, models) "
+              f"{lib_ms:.6f} ms ({card})")
         if label == "wake-up":
             wall_host = host_ms(torch, lambda: weighted_mix(block, w_host, out=out), 1000)
             wall_dev = host_ms(torch, lambda: weighted_mix(block, w, out=out), 1000)
@@ -2470,7 +2685,8 @@ def phase_dfl(torch, card):
                   f"with device weights ({card})")
         del block, out, ref, got
     main = timed["wake-up"]
-    print(f"dfl: weighted_mix launches over the seven methods' card runs: {launches}")
+    print(f"dfl: weighted_mix launches over the three tasks' card runs "
+          f"({len(DFL_METHODS)} + 2 x {len(DFL_TASK_METHODS)} methods): {launches}")
     return {"name": "weighted_mix", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/weighted_mix.cu",
             "replaces": "src/repro/kernels/weighted_mix.py:88",

@@ -2,8 +2,9 @@
 a parameter tree in the reference's layout onto the model's state dict.
 
 :func:`task_params_from_jax` carries a flat vector of the reference's
-DFL tasks (``repro.models.small``) over; the port's tasks
-(:mod:`repro_torch.models.small`) keep the same flat layout.
+DFL tasks (``repro.models.small``: the MLP, the CNN and the LSTM)
+over; the port's tasks (:mod:`repro_torch.models.small`) keep the same
+flat layout.
 
 :func:`params_from_jax` takes the tree ``repro.models.model.init_params``
 returns, with every leaf as a numpy array (the caller converts; this
@@ -88,9 +89,16 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
     return model
 
 
-def task_params_from_jax(flat, device="cpu") -> torch.Tensor:
-    """A reference task's flat parameter vector (``MLPTask.init_params``,
-    a numpy array) as a flat f32 tensor on ``device``.  The port's
-    :class:`repro_torch.models.small.MLPTask` keeps the reference's flat
-    layout, so the vector means the same model in both packages."""
-    return torch.from_numpy(np.asarray(flat, np.float32).copy()).to(device)
+def task_params_from_jax(flat, device="cpu", task=None) -> torch.Tensor:
+    """A reference task's flat parameter vector (``MLPTask``, ``CNNTask``
+    or ``LSTMTask``'s ``init_params``, a numpy array) as a flat f32
+    tensor on ``device``.  The port's tasks
+    (:mod:`repro_torch.models.small`) keep the reference's flat layout,
+    so the vector means the same model in both packages.  Given the
+    port's ``task``, a vector of another length than ``task.num_params``
+    raises ``ValueError``."""
+    vec = np.asarray(flat, np.float32)
+    if task is not None and vec.size != task.num_params:
+        raise ValueError(f"a flat vector of {vec.size} values does not fit "
+                         f"{type(task).__name__}'s {task.num_params} parameters")
+    return torch.from_numpy(vec.copy()).to(device)

@@ -3,9 +3,9 @@
 ``gather_mix_int8``, ``dequant_accumulate``, ``ssd_scan`` and
 ``weighted_mix`` kernels against their plain PyTorch versions, and the
 serving and slot training loops (codec-free and under the block codecs),
-the Mamba2 prefill and the DFL engine on the card against the same on
-the CPU.  Every test here needs an NVIDIA
-GPU and skips without one; the file imports neither JAX nor the
+the Mamba2 prefill and the DFL engine over its three tasks on the card
+against the same on the CPU.  Every test here needs an NVIDIA GPU and
+skips without one; the file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1068,22 +1068,40 @@ def test_weighted_mix_rejects_bad_layouts(cuda):
         weighted_mix(m, w, out=torch.zeros((64,), device=cuda, dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("method", ["fedlay", "fedavg", "gaia", "dfl-dds"])
-def test_engine_card_matches_cpu(cuda, method):
-    """A small Engine.run on the card against the same call on the CPU
-    from the same initial vector: equal counters and trace times, trace
-    accuracies within 2/n_test, final models within 1e-5 x max|p| (cuBLAS
-    and the CPU's matmuls round differently), and one weighted_mix launch
-    per aggregation on the card and none on the CPU."""
-    from repro_torch.core.dfl import Engine
-    from repro_torch.data import mnist_like, shard_partition
-    from repro_torch.kernels.weighted_mix import weighted_mix
-    from repro_torch.models.small import MLPTask
+def _engine_task(kind, device):
+    """A small task of each kind, as tier-1 runs them: the MLP on 12 x 12
+    digits, ``benchmarks/common.py``'s cifar and shakespeare sizes."""
+    from repro_torch.data import char_lm, cifar_like, mnist_like, shard_partition
+    from repro_torch.models.small import CNNTask, LSTMTask, MLPTask
+    if kind == "lstm":
+        data = char_lm(num_roles=24, stream_len=512, test_len=2048, seed=0)
+        return LSTMTask(data, 8, hidden=32, seq=24, local_steps=2, batch=8, device=device)
+    if kind == "cnn":
+        data = cifar_like(n_train=600, n_test=200, image=8, seed=0)
+        part = shard_partition(data.y_train, num_clients=10, shards_per_client=3, seed=0)
+        return CNNTask(data, part, channels=8, local_steps=2, batch=32, device=device)
     data = mnist_like(n_train=600, n_test=200, image=12, seed=0)
     part = shard_partition(data.y_train, num_clients=10, shards_per_client=3, seed=0)
+    return MLPTask(data, part, hidden=16, local_steps=2, batch=16, device=device)
+
+
+@pytest.mark.parametrize("kind,method", [
+    pytest.param(kind, method, id=method if kind == "mlp" else f"{kind}-{method}")
+    for kind in ("mlp", "cnn", "lstm")
+    for method in ("fedlay", "fedavg", "gaia", "dfl-dds")])
+def test_engine_card_matches_cpu(cuda, kind, method):
+    """A small Engine.run on the card against the same call on the CPU
+    from the same initial vector, for each of the three tasks: equal
+    counters and trace times, trace accuracies within 2 / (number of
+    predictions), final models within 1e-5 x max|p| (cuBLAS, cuDNN and the
+    CPU round their products differently, and the card's convolution and
+    embedding gradients may accumulate in any order), and one weighted_mix
+    launch per aggregation on the card and none on the CPU."""
+    from repro_torch.core.dfl import Engine
+    from repro_torch.kernels.weighted_mix import weighted_mix
     runs = []
     for device in ("cpu", cuda):
-        task = MLPTask(data, part, hidden=16, local_steps=2, batch=16, device=device)
+        task = _engine_task(kind, device)
         before = weighted_mix.launches
         res = Engine().run(task, method, total_time=4.0, model_bytes=1000, seed=0)
         runs.append((res, weighted_mix.launches - before))
@@ -1093,8 +1111,9 @@ def test_engine_card_matches_cpu(cuda, method):
                   "local_steps_per_client"):
         assert getattr(rg, field) == getattr(rc, field), field
     assert [r.time for r in rg.trace] == [r.time for r in rc.trace]
+    predictions = task._yte.numel()
     for a, b in zip(rg.trace, rc.trace):
-        assert np.abs(a.accs - b.accs).max() <= 2 / 200
+        assert np.abs(a.accs - b.accs).max() <= 2 / predictions
     scale = max(p.abs().max().item() for p in rc.final_params)
     for p, q in zip(rg.final_params, rc.final_params):
         assert p.device.type == "cuda"
