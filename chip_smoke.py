@@ -92,9 +92,11 @@ Phases, each printing its lines:
    (N = 25,578, 100 clients x 3 label shards) and ``LSTMTask`` on 200
    role streams, two a client (N = 27,936, 100 clients), each at its
    defaults, for fedlay, fedavg, gaia, chord and dfl-dds.  For each task
-   the checks (launches equal to the engine's aggregations, peak memory
-   against its reckoning, cuDNN's workspace included, fedlay's accuracy
-   rising, fedlay on the card against the same call on the CPU), each
+   the checks (the first SGD step's gradient on the card against an f64
+   referee on the CPU, one local_train card against CPU, launches equal
+   to the engine's aggregations, peak memory against its reckoning,
+   cuDNN's workspace included, fedlay's accuracy rising, fedlay on the
+   card against the same call on the CPU), each
    method's wall time, accuracy, messages and suppressed sends, where a
    fedlay run's host time goes and the mean of its ``engine.aggregate``
    span; one CNN and one LSTM ``local_train``'s host time, device time
@@ -2223,29 +2225,28 @@ DFL_METHODS = ("fedlay", "fedlay-noconf", "fedlay-sync", "fedavg", "gaia", "chor
 #: over the run's local steps.  Set from the readings: 1.70e-05 in both
 #: H100 runs of this phase (NVIDIA H100 80GB HBM3, 700 W), so about 6x room.
 DFL_CARD_TOL = 1e-4
+#: the first SGD step's gradient of each task, card against the CPU in
+#: f64 from the same vector and batch, as a share of each leaf's max|g|:
+#: the card's f32 path read at most 5.7e-07 over the three tasks' leaves
+#: and the CPU's f32 7.0e-07, while the card with TF32 products and
+#: convolutions (``first_gradient``'s contrast) read 4.0e-04 to 4.6e-04
+#: at the worst leaf of each task (NVIDIA H100 80GB HBM3, 700.00 W).  So
+#: this limit holds the card to full f32 with 17x room, and every run
+#: checks that TF32 would fail it.
+DFL_GRAD_TOL = 1e-5
+#: one whole local_train (4 steps), card against CPU in f32 from the same
+#: vector, as a share of max|p|: read 3.55e-08 (MLP) and 3.88e-08 (LSTM)
+#: (NVIDIA H100 80GB HBM3, 700.00 W).  Not the CNN's (``step_tol`` None
+#: in ``DFL_TASKS``): there a later step meets max-pool windows whose two
+#: best inputs lie within f32 rounding, and each side of such a tie is a
+#: different result.  cuDNN's weight gradient (``wgrad_alg0_engine``)
+#: sums with atomics, so the card's side varies from run to run: two card
+#: runs of one process read 2.03e-04 apart, the card 2.03e-04 and the
+#: CPU's f32 5.93e-05 off an f64 referee, where its first step's gradient
+#: read within 3.7e-07.  The CNN's precision is held by ``DFL_GRAD_TOL``.
+DFL_STEP_TOL = 1e-6
 #: the CNN's and the LSTM's methods: Table III's columns
 DFL_TASK_METHODS = ("fedlay", "fedavg", "gaia", "chord", "dfl-dds")
-#: their N at the paper's input widths and the tasks' defaults
-DFL_TASK_N = {"CNNTask": 25_578, "LSTMTask": 27_936}
-#: their fedlay runs, card against CPU: trace accuracies within ``flips``
-#: predictions, final models within ``tol`` x max|p|.  The CNN's run carries
-#: a rounding-size difference far (a max pool's winner or a ReLU's side
-#: flips, and the SGD steps part from there): read 7 of 1000 predictions
-#: and 2.38e-03 x max|p| against the CPU, and 18 and 2.46e-03 between two
-#: card runs whose initial vectors differ by 1e-7 (``spread``, printed in
-#: every run), so its limits are set with about 2x and 4x room on those.
-#: The LSTM's run is smooth: 0 predictions and 1.16e-07 x max|p| read,
-#: limit 1e-5.  Its CPU run takes one intra-op thread: its ops are small,
-#: and more threads only add their handoffs (NVIDIA H100 80GB HBM3, 700.00
-#: W; the readings of this phase before these limits were set).
-#: One local_train, card against CPU from the same vector, as a share of
-#: max|p| (``step_tol``): read 3.55e-08 (MLP) and 3.88e-08 (LSTM), limit
-#: 1e-6.  The CNN's gradient jumps where a max pool's two best inputs swap
-#: places, and cuDNN's weight gradient sums with atomics, so a card run may
-#: land on either side of such a near tie: read 7.17e-08 in one run of
-#: this phase and 2.03e-04 in another, limit 2e-3.
-DFL_TASK_CHECKS = {"CNNTask": dict(flips=40, tol=1e-2, step_tol=2e-3, spread=True),
-                   "LSTMTask": dict(flips=2, tol=1e-5, cpu_threads=1)}
 
 
 def check_weighted_mix(torch):
@@ -2302,40 +2303,71 @@ def check_weighted_mix(torch):
           f"row of the input): bit for bit with its plain version (tolerance 0)")
 
 
-def dfl_work(task) -> tuple:
-    """One local step's and one evaluation's device bytes beyond what the
-    task keeps resident (its data), reckoned from its shapes: the step's
-    8 flat vectors (its input copy, the gradient, the per-slice gradients
-    autograd scatters into flat buffers, lr·grad and the update) and its
-    batch's activations and their gradients, and one evaluation's
-    activations at their largest.  A max pool's output is counted at 12
-    bytes an element, with its int64 argmax.  Returns (bytes, what)."""
-    f, b = 4 * task.num_params, task.batch
-    name = type(task).__name__
-    if name == "CNNTask":
-        c, side, n = task.ch, task._xte.shape[-1], task._xte.shape[0]
-        q, r = side // 2, side // 4
-        # forward over the batch: x, conv1 (ReLU in place), pool1 + argmax,
-        # conv2, pool2 + argmax, the NHWC copy, logits; as much again back
-        step = 2 * 4 * b * (3 * side * side + c * side * side + 3 * c * q * q
-                            + 2 * c * q * q + 3 * 2 * c * r * r + task.d_flat + task.k)
-        # the evaluation peaks at conv1's map beside pool1 and its argmax
-        evaluation = 4 * n * (c * side * side + 3 * c * q * q + task.d_flat + 2 * task.k)
-        return 8 * f + step + evaluation, "8 N x 4, a batch's maps x 2, the test set's conv1 map and pool1"
-    if name == "LSTMTask":
-        e, h, v, s = task.EMBED, task.hidden, task.vocab, task.seq
-        n = task._xte.shape[0]
-        # forward over the batch: the window, the embeddings, e·wx and
-        # + b, each step's z, h·wh, gates and states, the stacked h,
-        # logits and log-probabilities; as much again back
-        step = 8 * b * (s + 1) + 2 * 4 * b * s * (e + 2 * 4 * h + 2 * 4 * h + 9 * h
-                                                  + h + 2 * v)
-        evaluation = 4 * n * s * (e + 2 * 4 * h + 2 * h + 2 * v) + 4 * n * (2 * 4 * h + 9 * h)
-        return 8 * f + step + evaluation, "8 N x 4, a batch's steps x 2, one evaluation"
+def mlp_work(task) -> tuple:
+    """The MLP's local step and evaluation device bytes (``DFL_TASKS``)."""
     n = task._xte.shape[0]
-    work = (8 * f + 4 * b * (task.d_in + 2 * task.hidden + 2 * task.k)
+    work = (8 * 4 * task.num_params
+            + 4 * task.batch * (task.d_in + 2 * task.hidden + 2 * task.k)
             + 4 * n * (3 * task.hidden + task.k))
     return work, "8 N x 4, a batch's activations, one evaluation"
+
+
+def cnn_work(task) -> tuple:
+    """The CNN's (``DFL_TASKS``).  A max pool's output is counted at 12
+    bytes an element, with its int64 argmax."""
+    b, c, side, n = task.batch, task.ch, task._xte.shape[-1], task._xte.shape[0]
+    q, r = side // 2, side // 4
+    # forward over the batch: x, conv1 (ReLU in place), pool1 + argmax,
+    # conv2, pool2 + argmax, the NHWC copy, logits; as much again back
+    step = 2 * 4 * b * (3 * side * side + c * side * side + 3 * c * q * q
+                        + 2 * c * q * q + 3 * 2 * c * r * r + task.d_flat + task.k)
+    # the evaluation peaks at conv1's map beside pool1 and its argmax
+    evaluation = 4 * n * (c * side * side + 3 * c * q * q + task.d_flat + 2 * task.k)
+    return (8 * 4 * task.num_params + step + evaluation,
+            "8 N x 4, a batch's maps x 2, the test set's conv1 map and pool1")
+
+
+def lstm_work(task) -> tuple:
+    """The LSTM's (``DFL_TASKS``)."""
+    b, e, h, v, s = task.batch, task.EMBED, task.hidden, task.vocab, task.seq
+    n = task._xte.shape[0]
+    # forward over the batch: the window, the embeddings, e·wx and + b,
+    # each step's z, h·wh, gates and states, the stacked h, logits and
+    # log-probabilities; as much again back
+    step = 8 * b * (s + 1) + 2 * 4 * b * s * (e + 2 * 4 * h + 2 * 4 * h + 9 * h + h + 2 * v)
+    evaluation = 4 * n * s * (e + 2 * 4 * h + 2 * h + 2 * v) + 4 * n * (2 * 4 * h + 9 * h)
+    return (8 * 4 * task.num_params + step + evaluation,
+            "8 N x 4, a batch's steps x 2, one evaluation")
+
+
+#: the dfl phase's tasks, one entry each: N at the phase's widths and the
+#: task's defaults; ``work``, one local step's and one evaluation's device
+#: bytes beyond what the task keeps resident (its data), reckoned from its
+#: shapes (the step's 8 flat vectors: its input copy, the gradient, the
+#: per-slice gradients autograd scatters into flat buffers, lr·grad and
+#: the update; its batch's activations and their gradients; one
+#: evaluation's activations at their largest); ``conv``, whether cuDNN's
+#: convolution workspace joins the reckoning (``conv_workspace``); and the
+#: limits of ``dfl_task_runs``' card-against-CPU checks.
+#:
+#: fedlay's final models, card against CPU, as a share of max|p| (``tol``)
+#: and its trace accuracies in predictions (``flips``).  The MLP's: see
+#: ``DFL_CARD_TOL``.  The CNN's run carries a rounding-size difference far
+#: (a max pool's winner or a ReLU's side flips, and the SGD steps part
+#: from there): read 11, 6 and 9 of 1000 predictions and 2.12e-03,
+#: 1.96e-03 and 2.27e-03 x max|p| against the CPU, and 10 and 2.01e-03
+#: between two card runs whose initial vectors differ by 1e-7 x N(0, 1);
+#: its limits have about 4x room.  The LSTM's run is smooth: 0
+#: predictions and 1.16e-07 x max|p| read, limit 1e-5.
+#: Its CPU run takes one intra-op thread (``cpu_threads``): its ops are
+#: small, and more threads only add their handoffs (NVIDIA H100 80GB HBM3,
+#: 700.00 W, for all these readings).
+DFL_TASKS = {
+    "MLPTask": dict(N=50_890, work=mlp_work, tol=DFL_CARD_TOL),
+    "CNNTask": dict(N=25_578, work=cnn_work, conv=True, flips=40, tol=1e-2,
+                    step_tol=None),
+    "LSTMTask": dict(N=27_936, work=lstm_work, flips=2, tol=1e-5, cpu_threads=1),
+}
 
 
 def conv_workspace(torch, task) -> int:
@@ -2345,10 +2377,8 @@ def conv_workspace(torch, task) -> int:
     over the test set, as an evaluation runs it, and its forward and
     backward over a batch, as a local step runs them), allocates beyond
     the tensors it leaves behind.  Measured so, as no API reports the
-    size of the workspace cuDNN's heuristics pick.  0 for other tasks."""
+    size of the workspace cuDNN's heuristics pick."""
     import torch.nn.functional as F
-    if type(task).__name__ != "CNNTask":
-        return 0
     t = task.unflatten(task.init_params(0))
     side, most = task._xte.shape[-1], 0
     for i, (conv, bias) in enumerate((("c1", "b1"), ("c2", "b2"))):
@@ -2377,8 +2407,8 @@ def conv_workspace(torch, task) -> int:
 def dfl_reckoned(task, method, n, N, workspace=0) -> tuple:
     """The device bytes a run of ``method`` adds to what is allocated
     before it: the engine's buffers, plus the task's local step and
-    evaluation (``dfl_work``) and cuDNN's workspace (``conv_workspace``).
-    Returns (bytes, what)."""
+    evaluation (its ``DFL_TASKS`` entry's ``work``) and cuDNN's workspace
+    (``conv_workspace``).  Returns (bytes, what)."""
     from repro_torch.core.dfl import resolve_method
     spec = resolve_method(method)
     f = 4 * N
@@ -2392,34 +2422,84 @@ def dfl_reckoned(task, method, n, N, workspace=0) -> tuple:
         engine, what = n * f + 4 * f, "n N x 4 local models + 4 N x 4 regions"
     else:
         engine, what = 2 * n * f + f, "2 n N x 4 client buffers + N x 4"
-    work, done = dfl_work(task)
+    work, done = DFL_TASKS[type(task).__name__]["work"](task)
     what = f"{what}; {done}"
     if workspace:
         what += f"; cuDNN's workspace {workspace / 1e6:.3f} MB"
     return engine + work + workspace, what
 
 
-def dfl_task_runs(torch, card, task, cpu_task, methods, kw, *, tol, flips=2,
-                  step_tol=1e-6, spread=False, cpu_threads=None) -> int:
-    """Engine.run over ``task`` for each of ``methods``, with its checks:
-    first one local_train and one evaluation on the card against the same
-    on ``cpu_task`` from the same vector (within ``step_tol`` x max|p|,
+def first_gradient(torch, task, cpu_task, p0) -> dict:
+    """The gradient of a local_train's first SGD step (client 0, seed 0)
+    from the same vector and batch, before any rounding difference can
+    move a max pool's or a ReLU's winner: on the card, on the CPU in f32,
+    and on the card with TF32 products and convolutions (turned on for
+    this call only, as the contrast), each against the CPU in f64 (the
+    referee).  Returns, per leaf, those three largest differences, each
+    as a share of the leaf's max|g|."""
+    import numpy as np
+    idx = task.partition.client_indices[0]
+    take = np.random.default_rng(0).choice(idx, size=min(task.batch, len(idx)),
+                                           replace=False)
+
+    def grad(t, dtype):
+        x, y = t._batch_of(take)
+        x = x.to(dtype) if x.is_floating_point() else x
+        p = p0.detach().to(device=t.device, dtype=dtype).requires_grad_(True)
+        (g,) = torch.autograd.grad(t._loss(t.unflatten(p), x, y), p)
+        return g.detach().cpu().double()
+
+    ref = grad(cpu_task, torch.float64)
+    got = [grad(task, torch.float32), grad(cpu_task, torch.float32)]
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        got.append(grad(task, torch.float32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for leaf, off, shape in task._layout:
+        sl = slice(off, off + int(np.prod(shape)))
+        top = ref[sl].abs().max().item() or 1.0
+        out[leaf] = tuple((g[sl] - ref[sl]).abs().max().item() / top for g in got)
+    return out
+
+
+def local_train_f64(torch, cpu_task, p0):
+    """local_train on the CPU in f64, with its draws: the referee."""
+    import numpy as np
+    p = p0.detach().cpu().double()
+    idx = cpu_task.partition.client_indices[0]
+    rng = np.random.default_rng(0)
+    for _ in range(cpu_task.local_steps):
+        take = rng.choice(idx, size=min(cpu_task.batch, len(idx)), replace=False)
+        x, y = cpu_task._batch_of(take)
+        x = x.double() if x.is_floating_point() else x
+        p = p.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(cpu_task._loss(cpu_task.unflatten(p), x, y), p)
+        p = p.detach() - cpu_task.lr * g
+    return p
+
+
+def dfl_task_runs(torch, card, task, cpu_task, methods, kw) -> int:
+    """Engine.run over ``task`` for each of ``methods``, with its checks
+    and the limits of its ``DFL_TASKS`` entry: first its N, and one
+    local_train and one evaluation on the card against the same on
+    ``cpu_task`` from the same vector (within ``DFL_STEP_TOL`` x max|p|,
     the same correct predictions); each aggregation one weighted_mix
     launch (against the engine's count); each run's peak against its
     reckoning; fedlay's mean accuracy rising; fedlay on the card against
     the same call over ``cpu_task`` (counters and trace times equal,
     accuracies within ``flips`` predictions, final models within ``tol``
     x max|p|; with ``cpu_threads`` intra-op threads there).  The fedlay
-    run carries a telemetry bus, whose spans split its host time.  With
-    ``spread``, fedlay also runs on the card from the initial vector
-    scaled by 1 + 1e-7·N(0, 1), to show how far the run's own dynamics
-    carry a difference of rounding size.  Returns the launches of the
-    methods' runs."""
+    run carries a telemetry bus, whose spans split its host time.
+    Returns the launches of the methods' runs."""
     import numpy as np
     from repro_torch.core.dfl import Engine
     from repro_torch.kernels.weighted_mix import weighted_mix
     from repro_torch.obs.events import Telemetry
     name, n, N = type(task).__name__, task.num_clients, task.num_params
+    spec = DFL_TASKS[name]
+    check(N == spec["N"], f"{name} has {N} parameters, not {spec['N']}")
     predictions = cpu_task._yte.numel()
     # a warm-up local step and evaluation, so that what is allocated before
     # each run holds cuBLAS's workspaces: one for each thread that runs
@@ -2431,17 +2511,35 @@ def dfl_task_runs(torch, card, task, cpu_task, methods, kw, *, tol, flips=2,
     torch.cuda.synchronize()
     print(f"dfl: {name}: a warm-up local step and evaluation keep "
           f"{(torch.cuda.memory_allocated() - before) / 2 ** 20:.3f} MiB allocated")
+    grads = first_gradient(torch, task, cpu_task, p0)
+    worst = max(g[0] for g in grads.values())
+    tf32 = max(g[2] for g in grads.values())
+    check(worst <= DFL_GRAD_TOL < tf32,
+          f"{name}: the first step's gradient on the card is {worst:.2e} of a leaf's "
+          f"max|g| off the f64 referee's, with TF32 {tf32:.2e}")
+    print(f"dfl: {name}: the first SGD step's gradient against the CPU in f64 from the "
+          f"same vector and batch, per leaf as a share of its max|g|, card (limit "
+          f"{DFL_GRAD_TOL:g}) / CPU in f32 / card with TF32: " + "; ".join(
+              f"{leaf} {a:.2e} / {b:.2e} / {c:.2e}" for leaf, (a, b, c) in grads.items()))
     want = cpu_task.local_train(p0.cpu(), 0, seed=0)
+    referee = local_train_f64(torch, cpu_task, p0)
+    repeat = task.local_train(p0, 0, seed=0).cpu()
     scale = want.abs().max().item()
-    err = (got.cpu() - want).abs().max().item()
+
+    def share(a, b):
+        return (a.double() - b.double()).abs().max().item() / scale
+    err = share(got.cpu(), want)
     right, cpu_right = round(acc * predictions), round(cpu_task.evaluate(got.cpu()) * predictions)
-    check(err <= step_tol * scale and right == cpu_right,
-          f"{name}: one local_train on the card is {err / scale:.2e} x max|p| off the "
-          f"CPU's, and its evaluation counts {right} right against {cpu_right}")
-    print(f"dfl: {name}: one local_train, card against CPU from the same vector: "
-          f"within {err / scale:.2e} x max|p| (limit {step_tol:g}); its evaluation "
-          f"{right} of {predictions} right on both")
-    workspace = conv_workspace(torch, task)
+    step_tol = spec.get("step_tol", DFL_STEP_TOL)
+    check((step_tol is None or err <= step_tol) and right == cpu_right,
+          f"{name}: one local_train on the card is {err:.2e} x max|p| off the CPU's, and "
+          f"its evaluation counts {right} right against {cpu_right}")
+    print(f"dfl: {name}: one local_train from the same vector, as a share of max|p|: card "
+          f"against CPU {err:.2e} (limit {step_tol or 'none: max-pool near-ties'}); "
+          f"against the CPU in f64, card {share(got.cpu(), referee):.2e}, CPU in f32 "
+          f"{share(want, referee):.2e}; a second card run {share(repeat, got.cpu()):.2e} "
+          f"from the first; its evaluation {right} of {predictions} right on both")
+    workspace = conv_workspace(torch, task) if spec.get("conv") else 0
     if workspace:
         print(f"dfl: {name}: cuDNN's convolution workspace, its largest over the "
               f"convolutions run alone at the phase's shapes: {workspace / 1e6:.3f} MB")
@@ -2506,7 +2604,8 @@ def dfl_task_runs(torch, card, task, cpu_task, methods, kw, *, tol, flips=2,
 
     # fedlay on the CPU: the same call, seed and initial vector
     threads = torch.get_num_threads()
-    torch.set_num_threads(cpu_threads or threads)
+    cpu_threads = spec.get("cpu_threads", threads)
+    torch.set_num_threads(cpu_threads)
     t0 = time.perf_counter()
     try:
         ref = Engine().run(cpu_task, "fedlay", **kw)
@@ -2521,23 +2620,15 @@ def dfl_task_runs(torch, card, task, cpu_task, methods, kw, *, tol, flips=2,
     check([r.time for r in fed.trace] == [r.time for r in ref.trace],
           f"{name}: fedlay card and CPU trace times differ")
     flipped, off = apart(fed, ref)
+    flips, tol = spec.get("flips", 2), spec["tol"]
     check(flipped <= flips and off <= tol,
           f"{name}: fedlay card and CPU differ by {flipped} predictions and "
           f"{off:.3e} x max|p|")
     print(f"dfl: {name}: fedlay card against CPU ({cpu_wall:.2f} s there, "
-          f"{cpu_threads or threads} threads): bytes, "
+          f"{cpu_threads} threads): bytes, "
           f"messages, local steps, suppressed sends, aggregations and {len(fed.trace)} "
           f"trace times equal; accuracies within {flipped} of {predictions} predictions "
           f"(limit {flips}); final models within {off:.3e} x max|p| (limit {tol:g})")
-    if spread:
-        gen = torch.Generator(device="cuda").manual_seed(29)
-        p1 = p0 * (1 + 1e-7 * torch.randn(p0.shape, generator=gen, device="cuda"))
-        moved = Engine().run(task, "fedlay", init_params=[p1] * n, **kw)
-        flipped, off = apart(moved, fed)
-        print(f"dfl: {name}: fedlay on the card from the initial vector x (1 + 1e-7 "
-              f"N(0, 1)) against the card's run: accuracies {flipped} of {predictions} "
-              f"predictions apart, final models {off:.3e} x max|p| apart")
-        del moved
     del fed, ref
     return launches
 
@@ -2567,7 +2658,9 @@ def phase_dfl(torch, card):
     width (N = 25,578, 100 clients x 3 label shards) and over LSTMTask at
     its defaults on 200 role streams of 1024 characters, two roles a
     client (N = 27,936, 100 clients), for Table III's five methods.  For
-    each task: launches equal to the engine's aggregations, peak memory
+    each task: the first SGD step's gradient on the card against an f64
+    referee and one local_train against the CPU's (``dfl_task_runs``),
+    launches equal to the engine's aggregations, peak memory
     within its reckoning, fedlay's accuracy rising, fedlay on the card
     against the same call on the CPU, where a fedlay run's host time
     goes and the mean of its engine.aggregate span; for the CNN and the
@@ -2587,7 +2680,6 @@ def phase_dfl(torch, card):
                            shards_per_client=DFL_SHARDS, seed=0)
     task = MLPTask(data, part, device="cuda")
     n, N = task.num_clients, task.num_params
-    check(N == 50_890, f"the MLP has {N} parameters, not 50,890")
     kw = dict(total_time=DFL_TIME, num_spaces=DFL_SPACES, seed=0)
     print(f"dfl: Engine.run over MLPTask (784-64-10, batch {task.batch}, "
           f"{task.local_steps} local steps, lr {task.lr}) on mnist_like(6000, 1000, "
@@ -2595,7 +2687,7 @@ def phase_dfl(torch, card):
           f"capacity periods (base 1), total time {DFL_TIME}; N = {N} f32 "
           f"({4 * N / 1e3:.1f} KB)")
     launches = dfl_task_runs(torch, card, task, MLPTask(data, part, device="cpu"),
-                             DFL_METHODS, dict(kw, model_bytes=4 * N), tol=DFL_CARD_TOL)
+                             DFL_METHODS, dict(kw, model_bytes=4 * N))
     del task
 
     images = cifar_like(n_train=6000, n_test=1000, image=32, seed=0)
@@ -2613,14 +2705,12 @@ def phase_dfl(torch, card):
              f"char_lm(200 roles, stream 1024, test 8192, vocab 32; made in "
              f"{text_s:.1f} s), two roles a client")):
         name, size = type(task).__name__, task.num_params
-        check(size == DFL_TASK_N[name], f"{name} has {size} parameters, not "
-                                        f"{DFL_TASK_N[name]}")
         print(f"dfl: Engine.run over {name} at its defaults (batch {task.batch}, "
               f"{task.local_steps} local steps, lr {task.lr}) on {said}, L = "
               f"{DFL_SPACES}, total time {DFL_TIME}; N = {size} f32 "
               f"({4 * size / 1e3:.1f} KB)")
         launches += dfl_task_runs(torch, card, task, cpu_task, DFL_TASK_METHODS,
-                                  dict(kw, model_bytes=4 * size), **DFL_TASK_CHECKS[name])
+                                  dict(kw, model_bytes=4 * size))
         local_train_breakdown(torch, task, card)
         del task, cpu_task
     gc.collect()
@@ -2641,9 +2731,10 @@ def phase_dfl(torch, card):
     for label, (k, cols, width), reps, load in (
             ("wake-up", (K, N, N), 200, 8),
             ("padded wake-up", (K, N, -(-N // 4) * 4), 200, 16),
-            ("CNNTask wake-up", (K, DFL_TASK_N["CNNTask"], DFL_TASK_N["CNNTask"]), 200, 8),
-            ("LSTMTask wake-up", (K, DFL_TASK_N["LSTMTask"], DFL_TASK_N["LSTMTask"]), 200,
-             16),
+            ("CNNTask wake-up", (K, DFL_TASKS["CNNTask"]["N"], DFL_TASKS["CNNTask"]["N"]),
+             200, 8),
+            ("LSTMTask wake-up", (K, DFL_TASKS["LSTMTask"]["N"], DFL_TASKS["LSTMTask"]["N"]),
+             200, 16),
             ("bandwidth", (7, 2 ** 26, 2 ** 26), 20, 16)):
         block = torch.randn((k, width), generator=gen, device="cuda")[:, :cols]
         w = torch.rand((k,), generator=gen, device="cuda")

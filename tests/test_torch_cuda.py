@@ -1118,3 +1118,28 @@ def test_engine_card_matches_cpu(cuda, kind, method):
     for p, q in zip(rg.final_params, rc.final_params):
         assert p.device.type == "cuda"
         assert (p.cpu() - q).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("kind", ["mlp", "cnn", "lstm"])
+def test_first_gradient_card_matches_f64(cuda, kind):
+    """The first SGD step's gradient on the card against the same on the
+    CPU in f64, from the same vector and batch, within 1e-5 of each
+    leaf's max|g|: the card's products and convolutions are full f32 (a
+    TF32 convolution reads about 1e-4 of a leaf's max)."""
+    card, cpu = _engine_task(kind, cuda), _engine_task(kind, "cpu")
+    p0 = card.init_params(0)
+    idx = card.partition.client_indices[0]
+    take = np.random.default_rng(0).choice(idx, size=min(card.batch, len(idx)),
+                                           replace=False)
+    grads = []
+    for task, dtype in ((card, torch.float32), (cpu, torch.float64)):
+        x, y = task._batch_of(take)
+        x = x.to(dtype) if x.is_floating_point() else x
+        p = p0.detach().to(device=task.device, dtype=dtype).requires_grad_(True)
+        (g,) = torch.autograd.grad(task._loss(task.unflatten(p), x, y), p)
+        grads.append(g.detach().cpu().double())
+    got, ref = grads
+    for leaf, off, shape in cpu._layout:
+        sl = slice(off, off + int(np.prod(shape)))
+        top = ref[sl].abs().max().item()
+        assert (got[sl] - ref[sl]).abs().max().item() <= 1e-5 * top, leaf
