@@ -83,7 +83,22 @@ Phases, each printing its lines:
    against ``gather_mix``, ``data_ptr``, peak memory), the codec-free
    per-rank round's losses beside, and ``dequant_accumulate`` at the
    round's shape against its plain version and two PyTorch calls;
-10. dfl: the paper's DFL engine over Table III's three tasks, each
+10. front: the training front door, ``launch/train.py``: its
+   ``make_dfl_step`` at Llama-3.2-3B width with the depth cut to what
+   fits AdamW's state, 4 clients on the one-rank NCCL group, three
+   AdamW steps of the flat round codec-free and three under int8-block
+   with its residual, with their checks (the kernels' launches a step,
+   the last round against the same round through the plain versions on
+   the card, ``data_ptr``, AdamW's count, peak memory, finite losses)
+   and the step's host time split into local step and mixing, tokens a
+   second; then the command line, ``python -m repro_torch.launch.train
+   --device cuda`` at tiny_lm's defaults (8 clients, 20 steps, int8-block,
+   checkpoints every 5, telemetry) in a subprocess, the same run
+   in-process on the script's group stopped at step 10 and resumed from
+   its checkpoint, its losses and final checkpoint held to the
+   subprocess's bit for bit, and the same run on the CPU, its losses held
+   to the card's;
+11. dfl: the paper's DFL engine over Table III's three tasks, each
    aggregation one ``weighted_mix`` launch: ``Engine.run`` over
    ``MLPTask`` at its default width on MNIST's 28 x 28 input width (N =
    50,890 f32), 100 clients dealt 3 label shards each, for fedlay,
@@ -105,7 +120,7 @@ Phases, each printing its lines:
    with host weights (the engine's) and device weights, its load width,
    against its plain version, its bound and ``torch.matmul``, with the
    wrapper's wall time a call at the MLP's wake-up;
-11. the ``kernels`` JSON line (all nine kernels), the card's name and
+12. the ``kernels`` JSON line (all nine kernels), the card's name and
    power limit, and the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result
@@ -116,6 +131,10 @@ the ``weighted_mix`` of the checkout at ROOT (this one, or another
 unpacked beside it, such as the parent commit) at the DFL engine's
 wake-up shape, so that two checkouts are compared in one call by
 running it in turns (A, B, B, A), each turn its own process.
+``python3 chip_smoke.py --front-step`` builds the kernels, opens the
+group and runs only the ``front`` phase's codec-free steps, in turns
+with the embedding's backward as the port has it and through indexing
+(:func:`front_step_turns`); it prints no result line.
 """
 
 from __future__ import annotations
@@ -125,9 +144,11 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1275,17 +1296,18 @@ def local_step_bytes(cfg, N: int) -> int:
     return max(act_bytes(cfg, TRAIN_SEQ) + 4 * N, 2 * 4 * N)
 
 
-def fit_depth(torch, base, resident_of):
+def fit_depth(torch, base, resident_of, step_bytes=None):
     """The most layers whose reckoned bytes, ``resident_of(N)`` + the
-    local step's (local_step_bytes), stay within 80 % of the card's
-    memory.  Returns (cfg, N, resident, reckoned, limit)."""
+    local step's (``step_bytes(cfg, N)``, by default local_step_bytes),
+    stay within 80 % of the card's memory.  Returns (cfg, N, resident,
+    reckoned, limit)."""
     limit = 0.8 * torch.cuda.get_device_properties(0).total_memory
     best = None
     for layers in range(1, base.num_layers + 1):
         cfg = dataclasses.replace(base, num_layers=layers)
         N = flat_size(torch, cfg)
         resident = resident_of(N)
-        total = resident + local_step_bytes(cfg, N)
+        total = resident + (step_bytes or local_step_bytes)(cfg, N)
         if total > limit:
             break
         best = (cfg, N, resident, total)
@@ -2209,6 +2231,385 @@ def phase_mesh(torch, card, mesh):
 
 
 # --------------------------------------------------------------------------
+# The training front door
+# --------------------------------------------------------------------------
+
+FRONT_CLIENTS, FRONT_SPACES, FRONT_STEPS, FRONT_LR = 4, 2, 3, 3e-3
+FRONT_CODEC = "int8-block"
+#: the CLI at tiny_lm's defaults: clients (all on the one rank), steps,
+#: checkpoint period, and the step the in-process run stops at
+FRONT_CLI = dict(clients=8, steps=20, every=5, stop=10)
+#: the in-process CPU run's losses against the card's, relative: f32 on
+#: both, sums in other orders, over 20 AdamW steps (as small_train holds)
+FRONT_CPU_TOL = 1e-4
+
+
+def front_resident(torch, codec, G, N) -> int:
+    """The front door's resident bytes at G clients: the parameters,
+    AdamW's mu and nu and the mixer's output buffer, 4 x G x N x 4, and
+    one slot's received rows, which the mixer allocates for its call:
+    codec-free the f32 rows, G x N x 4; under a codec their wire image,
+    beside the rank's own (the codec's workspace), and the error-feedback
+    residual, G x N x 4."""
+    if codec is None:
+        return 5 * G * N * 4
+    ws = codec.workspace(G, N, "meta")
+    return 5 * G * N * 4 + 2 * sum(t.numel() * t.element_size() for t in ws.values())
+
+
+def adamw_step_bytes(cfg, N: int) -> int:
+    """One client's AdamW local step beyond the resident buffers,
+    reckoned: its activations with its gradient row filling in
+    (act_bytes + 4 N), or after the backward pass the gradient row and
+    the update's f32 temporaries, at most three of a leaf's size at once
+    (m / c1, the denominator and their quotient), of the largest leaf;
+    the larger."""
+    import torch
+    from repro_torch.dist.flat import tree_flatten
+    from repro_torch.models.model import init_params
+    big = max(l.numel() for l in tree_flatten(
+        init_params(cfg, torch.Generator(), device="meta"))[0])
+    return max(act_bytes(cfg, TRAIN_SEQ) + 4 * N, 4 * N + 3 * 4 * big)
+
+
+def plain_round(torch, buf, res_in, sched, codec):
+    """The per-rank round of one rank holding every client, through the
+    kernels' plain versions on the card, over column chunks: the self
+    term ``mix_accumulate_ref(None, buf, self_w)``, then slot k's rows
+    ``buf[perms[k]]`` (under int8-block: the plain ``quantize_block`` of
+    ``buf + res_in``, its rows folded by ``dequant_accumulate_ref``) with
+    weights ``weights[:, k]``.  Yields (a, b, out chunk, residual chunk
+    or None)."""
+    from repro_torch.kernels.ref import (dequant_accumulate_ref, mix_accumulate_ref,
+                                         quantize_block_ref)
+    w = torch.as_tensor(sched.weights, device="cuda")
+    sw = torch.as_tensor(sched.self_weight, device="cuda")
+    perms = [torch.as_tensor(p, device="cuda") for p in sched.perms]
+    N = buf.shape[1]
+    for a in range(0, N, CHUNK):
+        b = min(a + CHUNK, N)
+        x = buf[:, a:b]
+        acc = mix_accumulate_ref(None, x, sw)
+        res = None
+        if codec is None:
+            for k, p in enumerate(perms):
+                acc = mix_accumulate_ref(acc, x[p], w[:, k])
+        else:
+            q, s, res = quantize_block_ref(x + res_in[:, a:b].to("cuda"), codec.block,
+                                           codec.levels, with_residual=True)
+            for k, p in enumerate(perms):
+                acc = dequant_accumulate_ref(acc, q[p], s[p], w[:, k], codec.block)
+        yield a, b, acc, res
+
+
+def front_steps(torch, cfg, mesh, codec_name, card, seed):
+    """FRONT_STEPS steps of launch/train.py's make_dfl_step on the
+    script's one-rank NCCL group: FRONT_CLIENTS clients of ``cfg``, all on
+    the rank, from the same seeded parameters, AdamW(3e-3, no weight
+    decay), fedlay over FRONT_SPACES spaces on the flat path (compressed
+    by ``codec_name`` with its residual), one TokenStream sequence of
+    TRAIN_SEQ tokens a client and step.  Checks each step's launches,
+    the losses finite, AdamW's count, the buffers' data_ptr, the peak
+    memory, and the last step's mixing round against plain_round.
+    Returns (losses, mean local ms, mean mixing ms, tokens a second,
+    launches)."""
+    import numpy as np
+    from repro_torch.core.mixing import build_permute_schedule
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist.sync import make_mixer
+    from repro_torch.kernels.gather_mix import gather_mix
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.wire_codec import (dequant_accumulate, dequantize_block,
+                                                gather_mix_int8, quantize_block)
+    from repro_torch.launch.train import make_dfl_step, rank_state
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.wire.codec import get_codec
+
+    G, L = FRONT_CLIENTS, FRONT_SPACES
+    codec = get_codec(codec_name)
+    ef = codec is not None and codec.error_feedback
+    name = codec_name or "codec-free"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    optimizer = adamw(FRONT_LR, weight_decay=0.0)
+    t0 = time.perf_counter()
+    p0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    state = rank_state(p0, G, optimizer, flat=True, codec=codec, error_feedback=ef)
+    del p0
+    torch.cuda.synchronize()
+    N = state.params.shape[1]
+    reckoned = front_resident(torch, codec, G, N) + adamw_step_bytes(cfg, N)
+    print(f"front: {name}: {G} clients' state ({G}, {N}) f32, AdamW's mu and nu"
+          f"{' and the residual' if ef else ''}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sched = build_permute_schedule(G, L)
+    mixer = make_mixer("fedlay", sched, mesh.group, G, clients_per_device=G,
+                       fuse="flat", codec=codec_name)
+    mix_ms, snap = [], {}
+
+    def timed_mixer(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if snap.get("keep") and ef:
+            # the round's input residual, for the plain round; its copy
+            # to the host is left out of the step's time
+            snap["res_in"] = state.residual.to("cpu", copy=True)
+            snap["copy_ms"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+        out = mixer(*args, **kw)
+        torch.cuda.synchronize()
+        mix_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    step = make_dfl_step(cfg, optimizer, timed_mixer, mesh.group, error_feedback=ef)
+    streams = [iter(TokenStream(cfg.vocab_size, 1, TRAIN_SEQ, seed=seed, client=c))
+               for c in range(G)]
+    w = torch.as_tensor(sched.weights, device="cuda")
+    sw = torch.as_tensor(sched.self_weight, device="cuda")
+    ptrs = state.buffers()
+    kernels = (mix_accumulate, quantize_block, dequant_accumulate, gather_mix,
+               gather_mix_int8, dequantize_block)
+    want = [2 * L + 1, 0, 0, 0, 0, 0] if codec is None else [1, 1, 2 * L, 0, 0, 0]
+    losses, step_ms = [], []
+    for k in kernels:
+        k.launches = 0
+    for i in range(FRONT_STEPS):
+        xs, ys = zip(*(next(s) for s in streams))
+        batch = {"tokens": torch.from_numpy(np.stack(xs)).to("cuda"),
+                 "labels": torch.from_numpy(np.stack(ys)).to("cuda")}
+        snap["keep"] = i == FRONT_STEPS - 1
+        start = [k.launches for k in kernels]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(step(state, batch, w, sw))
+        step_ms.append((time.perf_counter() - t) * 1e3 - snap.pop("copy_ms", 0.0))
+        got = [k.launches - a for k, a in zip(kernels, start)]
+        check(got == want, f"front {name} step {i} launched "
+              f"{dict(zip((k.__name__ for k in kernels), got))}")
+        check(np.isfinite(loss), f"front {name} step {i} loss is not finite")
+        losses.append(loss)
+        print(f"front: {name} step {i}: loss {loss:.6f}; step {step_ms[-1]:.1f} ms "
+              f"(local {step_ms[-1] - mix_ms[-1]:.1f}, mixing {mix_ms[-1]:.2f})")
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    count = state.opt_state["count"]
+    check(bool((count == FRONT_STEPS).all()), f"AdamW's count {count.tolist()} after "
+          f"{FRONT_STEPS} steps")
+    check(state.buffers() == ptrs, "a resident buffer was reallocated")
+    check(peak <= reckoned * (1 + PEAK_MARGIN),
+          f"front {name}: peak memory {peak / 1e9:.2f} GB above the reckoned "
+          f"{reckoned / 1e9:.2f} GB + {PEAK_MARGIN:.0%}")
+
+    # the last step's mixing round through the plain versions on the card
+    out, inp = state.params, state.spare
+    err, scale = 0.0, 0.0
+    for a, b, acc, res in plain_round(torch, inp, snap.get("res_in"), sched, codec):
+        if res is not None:
+            check(torch.equal(bits(state.residual[:, a:b]), bits(res)),
+                  f"front {name}: the residual differs from the plain round's in "
+                  f"columns {a}..{b}")
+        err = max(err, (out[:, a:b] - acc).abs().max().item())
+        scale = max(scale, inp[:, a:b].abs().max().item())
+        del acc, res
+    check(err <= 1e-6 * scale, f"front {name}: the last round differs from the plain "
+          f"round by {err}")
+    steady = step_ms[1:]
+    mean_step = sum(steady) / len(steady)
+    mean_mix = sum(mix_ms[1:]) / len(steady)
+    tok_s = G * TRAIN_SEQ / (mean_step / 1e3)
+    print(f"front: {name}: launches a step {dict(zip((k.__name__ for k in kernels), want))}"
+          f" in each of {FRONT_STEPS} steps; AdamW's count {FRONT_STEPS} in every row; "
+          f"resident buffers kept their data_ptr; the last round against the plain "
+          f"versions on the card: "
+          + ("residual bit for bit, " if ef else "")
+          + f"max abs err {err:.3e} <= 1e-6 x max|buf| {scale:.3f}; peak memory "
+          f"{peak / 1e9:.2f} GB <= {reckoned / 1e9:.2f} GB reckoned + {PEAK_MARGIN:.0%} "
+          f"({card})")
+    print(f"breakdown: front door {name} step at {cfg.num_layers} layer(s), {G} clients: "
+          f"over steps 1-{FRONT_STEPS - 1} {mean_step:.1f} ms a step, local "
+          f"{mean_step - mean_mix:.1f} ms and mixing {mean_mix:.2f} ms; "
+          f"{tok_s:.1f} tokens/s ({G} x {TRAIN_SEQ} tokens a step); the caching "
+          f"allocator freed its cache and retried {retries} time(s) ({card})")
+    del state
+    return losses, launches
+
+
+def front_args(**kw):
+    """launch/train.py's arguments at tiny_lm's defaults, as its parser
+    gives them, with ``kw`` over them."""
+    from repro_torch.launch.train import parser
+    args = parser().parse_args([])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def ckpt_leaves(directory, step):
+    from repro_torch.ckpt.checkpoint import load
+    return load(str(Path(directory) / f"ckpt_{step:08d}"))[0]["leaves"]
+
+
+def phase_front(torch, card, mesh, scratch: Path):
+    """launch/train.py on the card: (a) make_dfl_step at Llama-3.2-3B
+    width with its depth cut to what fits AdamW's state, codec-free and
+    under int8-block; (b) the CLI at tiny_lm's defaults in a subprocess,
+    the same run in-process on the script's group stopped at step 10 and
+    resumed from its checkpoint, held to the subprocess bit for bit, and
+    on the CPU."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.wire_codec import dequant_accumulate, quantize_block
+    from repro_torch.launch.mesh import ClientMesh
+    from repro_torch.launch.train import run
+    from repro_torch.wire.codec import get_codec
+
+    base, G = REGISTRY["llama3.2-3b"], FRONT_CLIENTS
+    cfg, N, resident, reckoned, limit = fit_depth(
+        torch, base, lambda n: front_resident(torch, get_codec(FRONT_CODEC), G, n),
+        adamw_step_bytes)
+    print(f"front: launch/train.py's make_dfl_step at {base.name}'s full width cut to "
+          f"{cfg.num_layers} of {base.num_layers} layers: the most whose reckoned "
+          f"bytes under {FRONT_CODEC}, {resident / 1e9:.2f} GB resident (parameters, "
+          f"AdamW's mu and nu, the mixer's output and the residual, 5 x {G} x N x 4, "
+          f"N = {N}, and the wire twice, sent and received) + "
+          f"{(reckoned - resident) / 1e9:.2f} GB for "
+          f"the local step, stay within 80 % of the card's {limit / 0.8 / 1e9:.2f} GB; "
+          f"{G} clients on the one-rank NCCL group, fedlay over {FRONT_SPACES} spaces, "
+          f"AdamW lr {FRONT_LR}, 1 x {TRAIN_SEQ} tokens a client and step")
+    free_losses, _ = front_steps(torch, cfg, mesh, None, card, seed=2000)
+    codec_losses, launches = front_steps(torch, cfg, mesh, FRONT_CODEC, card, seed=2000)
+    print(f"front: losses at {cfg.num_layers} layer(s), {FRONT_CODEC} against "
+          f"codec-free, step by step: "
+          + "; ".join(f"{a:.6f} / {b:.6f}" for a, b in zip(codec_losses, free_losses)))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the command line, then the same run in-process, stopped and resumed
+    cli = FRONT_CLI
+    sub, own, cpu_dir = scratch / "cli", scratch / "inproc", scratch / "cpu"
+    for d in (sub, own, cpu_dir):
+        d.mkdir(parents=True)
+    tel, out = sub / "telemetry.jsonl", sub / "out.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda",
+           "--clients", str(cli["clients"]), "--clients-per-device", str(cli["clients"]),
+           "--steps", str(cli["steps"]), "--fuse", "flat", "--codec", FRONT_CODEC,
+           "--ckpt-dir", str(sub / "ckpt"), "--ckpt-every", str(cli["every"]),
+           "--telemetry-out", str(tel), "--out", str(out)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the front door's CLI exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    res = json.loads(out.read_text())
+    rows = [json.loads(line) for line in tel.read_text().splitlines()]
+    sub_losses = res["losses"]
+    check(len(rows) == cli["steps"] and [r["round"] for r in rows] == list(range(cli["steps"])),
+          f"the telemetry holds {len(rows)} rows, not {cli['steps']}")
+    check(len(sub_losses) == cli["steps"] and sub_losses[-1] < sub_losses[0],
+          f"the CLI's loss did not fall: {sub_losses[0]} -> {sub_losses[-1]}")
+    print(f"front: `python -m repro_torch.launch.train --device cuda` at tiny_lm's "
+          f"defaults, {cli['clients']} clients on one rank, {cli['steps']} steps, "
+          f"--fuse flat --codec {FRONT_CODEC}, checkpoints every {cli['every']}: exit 0 "
+          f"in {wall:.1f} s (its process's start and its group included); loss "
+          f"{sub_losses[0]:.6f} -> {sub_losses[-1]:.6f}; {len(rows)} telemetry rows, "
+          f"wire {rows[-1]['wire_bytes_per_client']} B a client (one rank: no network)")
+
+    kw = dict(clients=cli["clients"], clients_per_device=cli["clients"], fuse="flat",
+              codec=FRONT_CODEC, ckpt_every=cli["every"], ckpt_dir=str(own / "ckpt"),
+              log_every=100)
+    kernels = (mix_accumulate, quantize_block, dequant_accumulate)
+    for k in kernels:
+        k.launches = 0
+    first = run(front_args(steps=cli["stop"], **kw), mesh)
+    second = run(front_args(steps=cli["steps"], **kw), mesh)
+    counts = {k.__name__: k.launches for k in kernels}
+    torch.cuda.synchronize()
+    L = front_args().spaces
+    steps = cli["steps"]
+    want = {"mix_accumulate": steps, "quantize_block": steps,
+            "dequant_accumulate": 2 * L * steps}
+    check(counts == want, f"the in-process runs launched {counts}, not {want}")
+    check(second["start_step"] == cli["stop"], f"the second run started at "
+          f"{second['start_step']}, not {cli['stop']}")
+    check(first["losses"] == sub_losses[:cli["stop"]],
+          "the in-process run's first losses differ from the CLI's: "
+          f"{first['losses']} vs {sub_losses[:cli['stop']]}")
+    check(second["losses"] == sub_losses[cli["stop"]:],
+          "the resumed run's losses differ from the CLI's: "
+          f"{second['losses']} vs {sub_losses[cli['stop']:]}")
+    mine, theirs = ckpt_leaves(own / "ckpt", steps), ckpt_leaves(sub / "ckpt", steps)
+    check(len(mine) == len(theirs), "the final checkpoints hold different leaf counts")
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(bits(a), bits(b)),
+              f"leaf {i} of the final checkpoint differs from the CLI's: max abs diff "
+              f"{(a.double() - b.double()).abs().max().item()}")
+    print(f"front: in-process run(args, mesh) on the script's group to step {cli['stop']}, "
+          f"then resumed from its checkpoint at step {second['start_step']} to "
+          f"{steps}: launches {counts}; losses of steps 0-{steps - 1} and all "
+          f"{len(mine)} leaves of the final checkpoint bit for bit with the CLI's")
+
+    group = dist.new_group(backend="gloo")
+    cpu_mesh = ClientMesh(group=group, rank=0, size=1, device=torch.device("cpu"))
+    threads = torch.get_num_threads()
+    t0 = time.perf_counter()
+    on_cpu = run(front_args(device="cpu", steps=steps,
+                            **{**kw, "ckpt_dir": str(cpu_dir / "ckpt")}), cpu_mesh)
+    cpu_s = time.perf_counter() - t0
+    dist.destroy_process_group(group)
+    err = max(abs(a - b) / abs(b) for a, b in zip(on_cpu["losses"], sub_losses))
+    check(err <= FRONT_CPU_TOL, f"the CPU run's losses differ from the card's by "
+          f"{err:.3e} relative")
+    print(f"front: the same {steps} steps on the CPU (gloo, {threads} threads, "
+          f"{cpu_s:.1f} s): losses within {err:.3e} relative of the card's (tol "
+          f"{FRONT_CPU_TOL}); the card's {sub_losses[-1]:.6f}, the CPU's "
+          f"{on_cpu['losses'][-1]:.6f}")
+    return launches
+
+
+
+def front_step_turns(torch, card, mesh) -> bool:
+    """``--front-step``: the ``front`` phase's codec-free steps
+    (:func:`front_steps` at the same depth) in a process that ran no
+    other phase, in three turns: the embedding as the port computes it
+    (``F.embedding``; the process's first steps), through indexing
+    (``table[tokens]``, whose backward is an accumulating ``index_put_``:
+    the port's embedding before ``F.embedding``), and ``F.embedding``
+    again.  Each turn prints its steps and its breakdown; a turn's
+    failed check is printed and the mode exits 1."""
+    import repro_torch.models.model as model
+    from repro_torch.configs import REGISTRY
+    from repro_torch.wire.codec import get_codec
+    cfg = fit_depth(torch, REGISTRY["llama3.2-3b"], lambda n: front_resident(
+        torch, get_codec(FRONT_CODEC), FRONT_CLIENTS, n), adamw_step_bytes)[0]
+    committed, ok = model.embed_apply, True
+    for label, embed in (("F.embedding, first", committed),
+                         ("indexing", lambda table, tokens: table[tokens]),
+                         ("F.embedding, again", committed)):
+        print(f"front-step turn: the embedding through {label}, {cfg.num_layers} "
+              f"layer(s)")
+        model.embed_apply = embed
+        try:
+            front_steps(torch, cfg, mesh, None, card, seed=2000)
+        except RuntimeError as err:
+            ok = False
+            print(f"front-step turn {label}: {err}")
+        finally:
+            model.embed_apply = committed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
+# --------------------------------------------------------------------------
 # The paper's DFL engine
 # --------------------------------------------------------------------------
 
@@ -2869,6 +3270,8 @@ def main() -> int:
     print(f"mesh: one-rank NCCL client group (torch.distributed "
           f"{torch.distributed.get_backend(mesh.group)}, world size {mesh.size})")
     try:
+        if sys.argv[1:] == ["--front-step"]:
+            return 0 if front_step_turns(torch, card, mesh) else 1
         phase_kernels(torch, F, card)
         check_gather_mix(torch)
         check_wire_kernels(torch)
@@ -2897,6 +3300,10 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
         mesh_entry = phase_mesh(torch, card, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as scratch:
+            phase_front(torch, card, mesh, Path(scratch))
         gc.collect()
         torch.cuda.empty_cache()
         dfl_entry = phase_dfl(torch, card)

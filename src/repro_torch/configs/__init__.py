@@ -31,10 +31,11 @@ REGISTRY: Dict[str, ArchConfig] = {
 
 
 def tiny_lm(vocab: int = 512, d_model: int = 128, layers: int = 4) -> ArchConfig:
-    """The small dense LM the serving tests and the CLI's ``--arch tiny``
-    use.  The JAX package defines it in ``repro/launch/train.py``, the
-    training entry point, which this serving slice does not port; it
-    lives here until that module is ported."""
+    """The small dense LM of the training front door
+    (``launch/train.py``, which re-exports this object) and of the
+    serving CLI's ``--arch tiny``.  The JAX package defines it in
+    ``repro/launch/train.py``; it lives here so that the serving entry
+    point need not import the training one."""
     return ArchConfig(name="tiny-lm", family="dense", num_layers=layers,
                       d_model=d_model, num_heads=4, num_kv_heads=2,
                       head_dim=32, d_ff=4 * d_model, vocab_size=vocab,

@@ -2,9 +2,11 @@
 
 The counterpart of ``repro/dist/sharding.py``, in part: the client count
 of a mesh.  The reference's PartitionSpec rules (``param_specs``,
-``cache_specs``, ``batch_spec``, ``enforce_divisibility``) have no caller
-in the port until its training front door exists (ROADMAP.md Queue 1
-item 5).
+``cache_specs``, ``batch_spec``, ``spec_for_leaf``,
+``enforce_divisibility``) stay unported: the port's training front door
+(``launch/train.py``) shards no model, each rank holding its G clients'
+full replicas.  They wait for the port's dry run (ROADMAP.md Queue 1
+item 11), their first caller.
 """
 
 from __future__ import annotations

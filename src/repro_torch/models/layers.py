@@ -72,7 +72,12 @@ def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """The rows of ``table`` at ``tokens``.  Through ``F.embedding``, whose
+    backward sums each row's gradients in a fixed order on the CPU too
+    (indexing's backward, an accumulating ``index_put_``, does not with
+    more than one thread there), so a training run repeats bit for bit,
+    which resuming from a checkpoint relies on."""
+    return F.embedding(tokens, table)
 
 
 def unembed_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

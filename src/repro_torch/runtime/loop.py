@@ -23,7 +23,8 @@ are allocated once, when the loop is built, and keep their storage for
 the whole run (what each step or mixer returns is written into them).
 The loop needs an ``OverlayController(flat_io=True)``: the population is
 one resident (capacity, N) flat buffer
-(:class:`repro_torch.dist.flat.FlatSpec`), and the local step sees a
+(:class:`repro_torch.runtime.resident.Resident`, which the front door
+shares), and the local step sees a
 tree of views into it; the mixer writes the round into the second
 buffer and the two swap roles every round.  The reference's other mode,
 a resident parameter tree, waits for the slice whose path needs it.
@@ -37,10 +38,13 @@ updated in place: joiner and leaver rows are zeroed as a plan lands
 keep theirs.  The round forms ``buf + residual`` in the mixer's output
 buffer, which is free until the round writes it.
 
-Checkpointing (``save`` / ``restore``) waits for ROADMAP.md Queue 1
-item 5.  A simulator that offers ``data_faults()`` (the reference's
-chaos engine, Queue 1 item 6) turns on degraded rounds through the
-mixer's ``edge_mask``.
+``save`` / ``restore`` checkpoint the training state in the reference's
+format (:mod:`repro_torch.ckpt`): its leaf list, in the reference's
+order, with the step and the slot occupancy, so a checkpoint of either
+package's loop restores in the other.  ``restore`` copies into the
+resident buffers in place.  A simulator that offers ``data_faults()``
+(the reference's chaos engine, Queue 1 item 6) turns on degraded rounds
+through the mixer's ``edge_mask``.
 """
 
 from __future__ import annotations
@@ -52,14 +56,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ckpt.checkpoint import load as ckpt_load, save as ckpt_save, state_leaves
 from ..core.mixing import multirate_participation
-from ..dist.flat import FlatSpec, tree_flatten, tree_map
+from ..dist.flat import tree_flatten
 from ..faults.plan import edge_mask_for
 from ..obs.events import get_telemetry
 from ..obs.rounds import get_round_ledger, round_ledger
 from ..overlay.controller import OverlayController
 from ..overlay.events import ChurnTrace
 from ..overlay.runtime import joiner_donors
+from .resident import Resident
 from .slots import RemapPlan, plan_reset_slots
 
 #: Simulated seconds of NDMP time one training round advances.
@@ -72,12 +78,6 @@ def _store(dst, src) -> None:
     for d, s in zip(tree_flatten(dst)[0], tree_flatten(src)[0]):
         if s.data_ptr() != d.data_ptr():
             d.copy_(s)
-
-
-def _stacked(row_tree, capacity: int):
-    """A (capacity, ...) copy of every leaf of a per-client tree."""
-    return tree_map(lambda l: l.unsqueeze(0).repeat(
-        (capacity,) + (1,) * l.dim()), row_tree)
 
 
 @dataclasses.dataclass
@@ -148,39 +148,27 @@ class SlotTrainLoop:
         if not live:
             raise ValueError("controller has no live nodes")
         first = make_params(live[0][1])
-        # the stacked layout, read from shapes alone (expand is a view)
-        shape_tree = tree_map(lambda l: l.unsqueeze(0).expand(
-            (C,) + tuple(l.shape)), first)
-        self._spec = FlatSpec.for_tree(shape_tree)
-        self._row_spec = FlatSpec.for_tree(
-            tree_map(lambda l: l.unsqueeze(0), first))
-        dev = tree_flatten(first)[0][0].device
-        # resident state, allocated once; dead slots hold zeros
-        self.params = torch.zeros((C, self._spec.size),
-                                  dtype=self._spec.dtype, device=dev)
-        self._spare = torch.empty_like(self.params)
         self.codec = controller.codec
         self.ef = self.codec is not None and self.codec.error_feedback
-        self.residual = (torch.zeros((C, self._spec.size), dtype=torch.float32,
-                                     device=dev) if self.ef else None)
-        self.workspace = (self.codec.workspace(C, self._spec.size, dev)
-                          if self.codec is not None else None)
-        self.opt_state = _stacked(optimizer.init(first), C)
+        # resident state, allocated once; dead slots hold zeros
+        self.state = Resident.allocate(first, C, optimizer, spare=True, codec=self.codec,
+                                       error_feedback=self.ef)
         for slot, node in live:
-            self._write_row(slot, first if slot == live[0][0]
-                            else make_params(node))
+            self.state.write_row(slot, first if slot == live[0][0] else make_params(node))
         del first
 
-    # ---- state surgery ---------------------------------------------------
-    def _write_row(self, slot: int, row) -> None:
-        """Write one client's (unstacked) tree into ``slot``."""
-        self._row_spec.ravel(tree_map(lambda l: l.unsqueeze(0), row),
-                             out=self.params[slot:slot + 1])
+    # the resident state's buffers, by the names the loop's callers read
+    params = property(lambda self: self.state.params)
+    opt_state = property(lambda self: self.state.opt_state)
+    residual = property(lambda self: self.state.residual)
+    workspace = property(lambda self: self.state.workspace)
+    _spare = property(lambda self: self.state.spare)
+    _spec = property(lambda self: self.state.spec)
 
+    # ---- state surgery ---------------------------------------------------
     def client_params(self, node_id: int):
         """The (unstacked) current model of one live client, as views."""
-        slot = self.controller.slots.slot_of[node_id]
-        return self._row_spec.unravel_row(self.params[slot])
+        return self.state.row(self.controller.slots.slot_of[node_id])
 
     def _apply_plan(self, plan: RemapPlan) -> Tuple[Tuple[int, ...],
                                                     Tuple[int, ...]]:
@@ -198,7 +186,7 @@ class SlotTrainLoop:
         for node, slot in plan.joiners:
             donor = donors.get(node)
             if donor is None:
-                self._write_row(slot, self.make_params(node))
+                self.state.write_row(slot, self.make_params(node))
             else:
                 self.params[slot].copy_(self.params[ctl.slots.slot_of[donor]])
             for d, s in zip(tree_flatten(self.opt_state)[0], tree_flatten(
@@ -245,6 +233,67 @@ class SlotTrainLoop:
                 idx[slot] = pos[node]
         return {k: v[torch.as_tensor(idx, device=v.device)]
                 for k, v in batch.items()}
+
+    # ---- crash/resume ----------------------------------------------------
+    def state_dict(self) -> Dict[str, object]:
+        """The full training state, as the loop's own tensors: the
+        (capacity, N) flat population, the capacity-stacked optimizer
+        state and, for an error-feedback codec, the residual.  Everything
+        else (schedules, mixers, slot map) is a function of the
+        controller's simulator, which a resume rebuilds by replaying the
+        control plane."""
+        state = {"params": self.params, "opt_state": self.opt_state}
+        if self.ef:
+            state["residual"] = self.residual
+        return state
+
+    def _occupancy(self) -> List[int]:
+        slots = self.controller.slots
+        return [-1 if slots.node_at(s) is None else int(slots.node_at(s))
+                for s in range(self.capacity)]
+
+    def save(self, path: str) -> None:
+        """Checkpoint the training state, the step counter and the slot
+        occupancy to ``path`` (``.npz`` and ``.json``), as the reference's
+        loop does: the state as its leaf list in the reference's order
+        (:func:`repro_torch.ckpt.checkpoint.state_leaves`), so a resume
+        must build the loop the same way (capacity, codec, optimizer)."""
+        ckpt_save(path, {"leaves": state_leaves(self.state_dict())},
+                  metadata={"step": int(self._step), "slots": self._occupancy(),
+                            "ef": bool(self.ef), "flat_io": True})
+
+    def restore(self, path: str) -> dict:
+        """Exact resume from :meth:`save` (either package's): the
+        population, optimizer state and residual bit for bit, copied into
+        the loop's resident buffers in place, and the step counter.  The
+        caller replays the control plane to the checkpoint's step first;
+        a different wire configuration or slot occupancy raises
+        ``ValueError``.  Returns the checkpoint's metadata."""
+        tree, meta = ckpt_load(path)
+        if bool(meta.get("ef")) != self.ef or not meta.get("flat_io"):
+            raise ValueError(
+                "checkpoint was written by a loop with a different "
+                f"wire configuration (ef={meta.get('ef')}, "
+                f"flat_io={meta.get('flat_io')})")
+        occupancy = self._occupancy()
+        if list(meta.get("slots", ())) != occupancy:
+            raise ValueError(
+                "slot occupancy mismatch: replay the control plane to "
+                f"the checkpoint step first (ckpt {meta.get('slots')} "
+                f"vs live {occupancy})")
+        want, leaves = state_leaves(self.state_dict()), tree["leaves"]
+        if len(leaves) != len(want):
+            raise ValueError(f"checkpoint has {len(leaves)} leaves, "
+                             f"this loop expects {len(want)}")
+        for have, exp in zip(leaves, want):
+            if tuple(have.shape) != tuple(exp.shape) or have.dtype != exp.dtype:
+                raise ValueError(
+                    f"leaf mismatch: checkpoint {tuple(have.shape)}/{have.dtype} "
+                    f"vs live {tuple(exp.shape)}/{exp.dtype}")
+        for have, exp in zip(leaves, want):
+            exp.copy_(have)
+        self._step = int(meta["step"])
+        return meta
 
     # ---- telemetry -------------------------------------------------------
     def _record_round(self, ledger, step: int, report, participating: int,
@@ -315,11 +364,10 @@ class SlotTrainLoop:
         if self.codec is not None:
             mkw["workspace"] = self.workspace
         if self.ef:
-            mixed, _ = ctl.mixer(self.params, mix_mask, self.residual,
-                                 out=self._spare, **mkw)
+            ctl.mixer(self.params, mix_mask, self.residual, out=self._spare, **mkw)
         else:
-            mixed = ctl.mixer(self.params, mix_mask, out=self._spare, **mkw)
-        self.params, self._spare = mixed, self.params
+            ctl.mixer(self.params, mix_mask, out=self._spare, **mkw)
+        self.state.swap()
         part = int(mix_mask.sum())
         loss = float(metrics["loss"])
         self.records.append(SlotStepRecord(

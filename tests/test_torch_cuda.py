@@ -3,9 +3,9 @@
 ``gather_mix_int8``, ``dequant_accumulate``, ``ssd_scan`` and
 ``weighted_mix`` kernels against their plain PyTorch versions, and the
 serving and slot training loops (codec-free and under the block codecs),
-the Mamba2 prefill and the DFL engine over its three tasks on the card
-against the same on the CPU.  Every test here needs an NVIDIA GPU and
-skips without one; the file imports neither JAX nor the
+the Mamba2 prefill, the DFL engine over its three tasks and the training
+front door's step on the card against the same on the CPU.  Every test
+here needs an NVIDIA GPU and skips without one; the file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -779,6 +779,119 @@ def test_per_rank_round_card_matches_cpu(cuda, nccl_mesh, codec, masked):
         assert torch.equal(_bits(gpu_res), _bits(cpu_res))
     if codec == "int8-block":
         assert counts == [4, 1, 1]
+
+
+@pytest.mark.parametrize("codec", [None, "int8-block"])
+def test_make_dfl_step_card_matches_cpu(cuda, nccl_mesh, codec):
+    """launch/train.py's make_dfl_step at tiny_lm's width (2 layers): 4
+    clients from the same parameters on the one-rank NCCL group, three
+    AdamW(3e-3) steps of the flat round (codec-free, or int8-block with
+    its residual) on the card against the same steps on the CPU (a gloo
+    group over the same rank).
+
+    * Each step's loss within 1e-4 relative (f32 on both, sums in other
+      orders).
+    * The card's last mixing round against the CPU's round from the same
+      inputs (the card's parameters and residual as the round read
+      them): the output within 1e-6 x max|buf|, the residual bit for bit,
+      as ``test_per_rank_round_card_matches_cpu`` holds one round.  A
+      round that dropped a neighbour or misweighted a row fails this.
+    * The final (G, N) parameters, and under int8-block the residual,
+      within 1e-5 x max|p|, but for a share of the elements that are
+      within 2 lr a step and, under int8-block, one quantization step
+      (max|p| / 127): at most 1e-3 of them codec-free (AdamW normalizes
+      each gradient component by its own size, so where one is near 0
+      its f32 rounding on the two devices can move its update by up to
+      2 lr), at most 1e-2 under int8-block (an operand within rounding
+      of a quantization boundary rounds to either side, which moves that
+      parameter a whole step, and the next local step spreads the
+      difference through the client's gradients: 0.20 % of the elements
+      on the card's first run).
+
+    Each step launches mix_accumulate 2L + 1 = 5 times codec-free, and
+    quantize_block once, dequant_accumulate 2L = 4 times and
+    mix_accumulate once under int8-block; AdamW's count is 3; the
+    buffers keep their storage."""
+    import torch.distributed as dist
+    from repro_torch.core.mixing import build_permute_schedule
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist.sync import make_mixer
+    from repro_torch.kernels.mix_accumulate import mix_accumulate
+    from repro_torch.kernels.wire_codec import dequant_accumulate, quantize_block
+    from repro_torch.launch.train import make_dfl_step, rank_state
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.wire.codec import get_codec
+    cfg, G, L, lr, steps = tiny_lm(layers=2), 4, 2, 3e-3, 3
+    sched = build_permute_schedule(G, L)
+    wire = get_codec(codec)
+    ef = wire is not None
+    gloo = dist.new_group(backend="gloo")
+    kernels = (mix_accumulate, quantize_block, dequant_accumulate)
+    runs, mixers = [], []
+    try:
+        for device, group in (("cpu", gloo), (cuda, nccl_mesh.group)):
+            opt = adamw(lr, weight_decay=0.0)
+            p0 = init_params(cfg, torch.Generator().manual_seed(5))
+            state = rank_state(p0, G, opt, flat=True, codec=wire, error_feedback=ef,
+                               device=device)
+            ptrs = state.buffers()
+            mixer = make_mixer("fedlay", sched, group, G, clients_per_device=G,
+                               fuse="flat", codec=codec)
+            mixers.append(mixer)
+            seen = {}
+
+            def keep_inputs(*args, _mixer=mixer, _seen=seen, **kw):
+                # the round's inputs, before it runs (the last step's stay)
+                _seen["buf"] = kw["buf"].to("cpu", copy=True)
+                _seen["res"] = args[3].to("cpu", copy=True) if ef else None
+                return _mixer(*args, **kw)
+
+            step = make_dfl_step(cfg, opt, keep_inputs, group, error_feedback=ef)
+            streams = [iter(TokenStream(cfg.vocab_size, 2, 64, seed=0, client=c))
+                       for c in range(G)]
+            w = torch.as_tensor(sched.weights, device=device)
+            sw = torch.as_tensor(sched.self_weight, device=device)
+            losses, counts = [], []
+            for _ in range(steps):
+                xs, ys = zip(*(next(s) for s in streams))
+                batch = {"tokens": torch.from_numpy(np.stack(xs)).to(device),
+                         "labels": torch.from_numpy(np.stack(ys)).to(device)}
+                start = [k.launches for k in kernels]
+                losses.append(float(step(state, batch, w, sw)))
+                counts.append([k.launches - a for k, a in zip(kernels, start)])
+            assert state.buffers() == ptrs
+            assert state.opt_state["count"].tolist() == [steps] * G
+            runs.append((losses, counts, state.params.cpu().numpy(),
+                         None if state.residual is None else state.residual.cpu().numpy(),
+                         seen, state.spec))
+        # the card's last round again, on the CPU from the card's inputs
+        *_, gpu_p, gpu_r, seen, spec = runs[1]
+        buf, res = seen["buf"], None if seen["res"] is None else seen["res"].clone()
+        out = torch.empty_like(buf)
+        kw = {"buf": buf, "out": out}
+        if ef:
+            kw["workspace"] = wire.workspace(G, buf.shape[1], "cpu")
+        mixers[0](spec.unravel(buf), torch.as_tensor(sched.weights),
+                  torch.as_tensor(sched.self_weight), *((res,) if ef else ()), **kw)
+    finally:
+        dist.destroy_process_group(gloo)
+    (cpu, _, cpu_p, cpu_r, _, _), (gpu, counts, *_) = runs
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-4)
+    assert counts == [[1, 1, 2 * L] if ef else [2 * L + 1, 0, 0]] * steps
+    np.testing.assert_allclose(gpu_p, out.numpy(), rtol=0,
+                               atol=1e-6 * float(buf.abs().max()))
+    if ef:
+        assert torch.equal(_bits(torch.from_numpy(gpu_r)), _bits(res))
+    scale = float(np.abs(cpu_p).max())
+    bound = 2 * lr * steps + (scale / wire.levels if ef else 0.0)
+    share = 1e-2 if ef else 1e-3
+    for name, got, want in [("params", gpu_p, cpu_p)] + ([("residual", gpu_r, cpu_r)]
+                                                         if ef else []):
+        diff = np.abs(got - want)
+        off = diff > 1e-5 * scale
+        assert off.mean() <= share, (name, int(off.sum()), off.size, float(diff.max()))
+        assert not off.any() or diff[off].max() <= bound, (name, float(diff.max()), bound)
 
 
 # --------------------------------------------------------------------------
