@@ -17,13 +17,15 @@ A faithful discrete-event implementation of the FedLay control plane:
   its own coordinate, which is the paper's mechanism for converging
   under *concurrent* joins and failures.
 
-A copy of ``repro/core/ndmp.py``, trimmed to what the DFL round calls
-(the transport fault seam, ``rejoin`` and the state export stay with the
-reference).  NDMP is host-side: the simulator is exact — per-message
-latencies, per-node clocks, no global knowledge — and
-:class:`repro_torch.overlay.controller.OverlayController` polls
+A copy of ``repro/core/ndmp.py``.  NDMP is host-side: the simulator is
+exact — per-message latencies, per-node clocks, no global knowledge —
+and :class:`repro_torch.overlay.controller.OverlayController` polls
 :meth:`Simulator.tables_version` / :meth:`Simulator.neighbor_tables`
-between training rounds and turns their deltas into mixers.
+between training rounds and turns their deltas into mixers.  The
+transport fault seam (:meth:`Simulator.set_message_filter`) and
+:meth:`Simulator.rejoin` serve :class:`repro_torch.faults.ChaosEngine`;
+:meth:`Simulator.export_state` is the bridge into
+:class:`repro_torch.scale.VectorSimulator`'s layout.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ class SimulatorProtocol(Protocol):
     """What the overlay control plane needs from *any* NDMP engine.
 
     :class:`Simulator` (exact per-message discrete events, the small-n
-    oracle) and the reference's ``VectorSimulator`` (flat-array
+    oracle) and :class:`repro_torch.scale.ndmp_vec.VectorSimulator` (flat-array
     batched engine for 10^5–10^6 nodes) both satisfy this, so
     :class:`repro_torch.overlay.controller.OverlayController` is engine-
     agnostic: it only ever polls the delta API and replays churn through
@@ -285,6 +287,9 @@ class Simulator:
         self.nodes: Dict[int, NodeState] = {}
         self.dropped_messages = 0
         self.delivered_messages = 0
+        # optional per-message fault seam (repro_torch.faults): consulted on
+        # every send; None = the fault-free transport
+        self._msg_filter: Optional[Callable] = None
         # monotone count of membership operations (join/leave/fail) —
         # folded into tables_version so a fail→rejoin of the same node
         # inside one control window can never alias an unchanged stamp
@@ -299,13 +304,39 @@ class Simulator:
     def _schedule(self, when: float, item: Tuple) -> None:
         heapq.heappush(self._heap, (when, next(self._seq), item))
 
+    def set_message_filter(self, fn: Optional[Callable]) -> None:
+        """Install a transport fault seam (or ``None`` to remove it).
+
+        ``fn(now, src, dst, msg)`` is consulted on every :meth:`send` and
+        returns ``None`` for normal delivery or a ``(deliver, extra_delay,
+        duplicates)`` verdict: ``deliver=False`` drops the message (the
+        sender still counts it as sent — it went onto the wire),
+        ``extra_delay`` adds seconds of transit time, and ``duplicates``
+        schedules that many extra copies (at-least-once transports).
+        This is the control-plane fault-injection seam of
+        :class:`repro_torch.faults.plan.ChaosEngine`; NDMP's handlers are
+        already idempotent under loss/duplication (monotone
+        ``improve_pointer``, retried discoveries, periodic probes)."""
+        self._msg_filter = fn
+
     def send(self, src: int, dst: int, msg: Message, *, join_phase: bool = False) -> None:
         node = self.nodes.get(src)
         if node is not None:
             node.sent_messages += 1
             if join_phase:
                 node.join_messages += 1
-        self._schedule(self.now + self.latency(), ("msg", src, dst, msg))
+        delay = self.latency()
+        if self._msg_filter is not None:
+            verdict = self._msg_filter(self.now, src, dst, msg)
+            if verdict is not None:
+                deliver, extra_delay, duplicates = verdict
+                if not deliver:
+                    self.dropped_messages += 1
+                    return
+                delay += extra_delay
+                for _ in range(duplicates):
+                    self._schedule(self.now + delay, ("msg", src, dst, msg))
+        self._schedule(self.now + delay, ("msg", src, dst, msg))
 
     def run_until(self, t: float) -> None:
         while self._heap and self._heap[0][0] <= t:
@@ -414,6 +445,30 @@ class Simulator:
                 msg = Discovery(space=s, target=st.coords[s], joiner=st.node_id,
                                 joiner_coords=st.coords)
                 self.send(st.node_id, entry, msg, join_phase=True)
+
+    def rejoin(self, node_id: int, bootstrap: int) -> None:
+        """Re-anchor an *already-alive* node through ``bootstrap``:
+        re-send Neighbor_discovery in every space as if joining afresh,
+        keeping the current tables (the monotone ``improve_pointer`` rule
+        only ever adopts strictly closer peers).
+
+        This is the partition heal-merge mechanism: after an asymmetric
+        or full partition, each side's failure detection prunes the other
+        side out of every addr book, leaving two internally-correct but
+        disjoint overlays that no amount of probing can reconnect (probes
+        route through addr books).  Re-joining the nodes of one side
+        through any live contact on the other re-establishes cross-side
+        reachability; Theorem 1 splices each rejoiner at its globally
+        closest coordinate and the periodic bidirectional probes converge
+        the merged rings from there."""
+        st = self.nodes[node_id]
+        if not st.alive:
+            raise KeyError(f"node {node_id} is not alive; use join()")
+        self.churn_ops += 1
+        st.bootstrap = bootstrap
+        self._send_discoveries(st, all_spaces=True)
+        self._schedule(self.now + self.probe_period,
+                       ("timer", node_id, "join_retry"))
 
     def leave(self, node_id: int) -> None:
         """NDMP leave: notify ring-adjacent pairs, then depart."""
@@ -632,3 +687,35 @@ class Simulator:
         alive = [n for n in self.nodes.values() if n.alive]
         return (frozenset(n.node_id for n in alive), self.churn_ops,
                 sum(n.version for n in alive))
+
+    def avg_messages_per_node(self, join_only: bool = False) -> float:
+        counts = [(n.join_messages if join_only else n.sent_messages)
+                  for n in self.nodes.values()]
+        return float(np.mean(counts)) if counts else 0.0
+
+    def export_state(self) -> Dict[str, np.ndarray]:
+        """Bulk flat-array snapshot of the live network — the bridge into
+        the vectorized engine's state layout (and the parity tests'
+        common currency).
+
+        Returns ``ids`` (n,) int64 sorted; ``coords`` (n, L) float64;
+        ``succ``/``pred`` (L, n) int64 neighbor *ids* with −1 for an
+        unset pointer; ``version`` (n,) int64 per-node pointer-rewrite
+        counts."""
+        ids = self.alive_ids()
+        n, L = len(ids), self.num_spaces
+        coords = np.empty((n, L), dtype=np.float64)
+        succ = np.full((L, n), -1, dtype=np.int64)
+        pred = np.full((L, n), -1, dtype=np.int64)
+        version = np.empty((n,), dtype=np.int64)
+        for r, u in enumerate(ids):
+            st = self.nodes[u]
+            coords[r] = st.coords
+            version[r] = st.version
+            for s in range(L):
+                if st.succ[s] is not None:
+                    succ[s, r] = st.succ[s]
+                if st.pred[s] is not None:
+                    pred[s, r] = st.pred[s]
+        return {"ids": np.asarray(ids, dtype=np.int64), "coords": coords,
+                "succ": succ, "pred": pred, "version": version}

@@ -695,3 +695,22 @@ def sync_bytes_per_client(strategy: str, model_bytes: int, num_clients: int,
     raise ValueError(
         f"unknown sync strategy {strategy!r}; choose from "
         f"{SYNC_STRATEGIES + ('complete', 'fedavg')}")
+
+
+def round_bytes_per_client(cache: dict, strategy: str, model_bytes: int,
+                           num_clients: int, codec=None, **kwargs):
+    """``(wire, payload)`` bytes a client for one round, memoized in
+    ``cache``: the wire image under ``codec`` beside the uncompressed
+    row (equal without a codec), each from
+    :func:`sync_bytes_per_client` with ``kwargs``.  A loop keeps one
+    ``cache`` for its row size and codec."""
+    key = (strategy, num_clients, tuple(sorted(kwargs.items())))
+    cached = cache.get(key)
+    if cached is None:
+        wire = sync_bytes_per_client(strategy, model_bytes, num_clients,
+                                     codec=codec, **kwargs)
+        payload = (sync_bytes_per_client(strategy, model_bytes, num_clients,
+                                         **kwargs)
+                   if codec is not None else wire)
+        cached = cache[key] = (wire, payload)
+    return cached

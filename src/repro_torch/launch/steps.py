@@ -150,7 +150,6 @@ def dfl_train_bundle(cfg: ArchConfig, shape: InputShape, num_clients: int,
     ef = (wire_codec is not None and wire_codec.error_feedback
           and sync in ("fedlay", "ring"))
     local = dfl_local_step(cfg, optimizer)
-    everyone = np.ones(C, np.float32)
 
     if masked:
         def masked_train_step(params, opt_state, batch, mask, *residual):
@@ -162,6 +161,9 @@ def dfl_train_bundle(cfg: ArchConfig, shape: InputShape, num_clients: int,
         step = masked_train_step
     else:
         def train_step(params, opt_state, batch, *residual):
+            # every row is a live client; with sync="none" the step takes
+            # any number of rows, as the reference's vmapped step does
+            everyone = np.ones(tree_flatten(params)[0][0].shape[0], np.float32)
             params, opt_state, metrics = local(params, opt_state, batch, everyone)
             metrics = {"loss": metrics["loss"]}
             if ef:

@@ -1,8 +1,7 @@
 """The live overlay controller: NDMP deltas → rebuilt, hot-swapped mixers.
 
-The port of ``repro/overlay/controller.py`` (the bounded-repair policy of
-``repro.faults`` waits for ROADMAP.md Queue 1 item 6).  Between training
-rounds the controller
+The port of ``repro/overlay/controller.py``.  Between training rounds
+the controller
 
 1. advances the discrete-event NDMP simulator (and applies any scheduled
    churn events),
@@ -174,6 +173,15 @@ class OverlayController:
     round, implies ``fuse="flat"`` and keys the cache too; with an
     error-feedback codec the mixers also take and return the residual
     (:func:`repro_torch.dist.sync.global_mixer`).
+
+    ``repair_policy`` (a :class:`repro_torch.faults.RepairPolicy`) makes
+    NDMP repair *bounded instead of assumed*: after each control window,
+    while ``sim.correctness()`` is below the policy's target, the
+    controller advances the simulator by the policy's backoff delays
+    (giving repair traffic time to land) at most ``max_retries`` times,
+    then proceeds degraded — tallied in :attr:`repair_retries`,
+    :attr:`repair_recovered` and :attr:`repair_gave_up` and as the
+    ``faults.repair_*`` counters.
     """
 
     def __init__(self, sim: SimulatorProtocol, *,
@@ -188,7 +196,8 @@ class OverlayController:
                  fuse: Optional[str] = None,
                  codec=None,
                  flat_io: bool = False,
-                 swap_barrier: Optional[Callable[[], None]] = None):
+                 swap_barrier: Optional[Callable[[], None]] = None,
+                 repair_policy=None):
         from ..dist.sync import resolve_wire
         if mixer_kind not in MIXER_KINDS:
             raise ValueError(f"unknown mixer kind {mixer_kind!r}; "
@@ -228,6 +237,10 @@ class OverlayController:
                                               fuse=self.fuse,
                                               codec=self.codec))
         self.cache = MixerCache(mixer_factory)
+        self.repair_policy = repair_policy
+        self.repair_retries = 0
+        self.repair_recovered = 0
+        self.repair_gave_up = 0
         self.swap_barrier = swap_barrier
         self.swap_barrier_aborts = 0
         self.rebuilds = 0
@@ -298,6 +311,8 @@ class OverlayController:
         self._applied_until = max(self._applied_until, t_end)
         ChurnTrace.apply(self.sim, sorted(due, key=lambda e: e.time))
         self.sim.run_until(t_end)
+        if self.repair_policy is not None:
+            self._repair_retry()
         delta = self.tracker.poll()
         if self._staged is None:
             self.last_plan = None
@@ -355,6 +370,28 @@ class OverlayController:
     def _alive_addresses(self) -> Tuple[NodeAddress, ...]:
         return tuple(sorted(self.sim.alive_addresses(),
                             key=lambda a: a.node_id))
+
+    def _repair_retry(self) -> bool:
+        """Bounded wait-for-repair: advance the simulator by backoff
+        delays until correctness recovers or the retry budget runs out.
+        Returns True when the overlay met the target."""
+        pol = self.repair_policy
+        if self.sim.correctness() >= pol.correctness_target:
+            pol.backoff.reset()
+            return True
+        bus = get_telemetry()
+        for _ in range(pol.max_retries):
+            self.repair_retries += 1
+            bus.count("faults.repair_retries")
+            self.sim.run_until(self.sim.now + pol.backoff.next_delay())
+            if self.sim.correctness() >= pol.correctness_target:
+                self.repair_recovered += 1
+                bus.count("faults.repair_recovered")
+                pol.backoff.reset()
+                return True
+        self.repair_gave_up += 1
+        bus.count("faults.repair_gave_up")
+        return False
 
     def _refresh(self, force: bool) -> Tuple[bool, bool, bool, float,
                                              Tuple[int, ...]]:

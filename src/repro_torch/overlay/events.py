@@ -1,18 +1,19 @@
 """Churn event streams and neighbor-table deltas (paper §III-B, Figs 8/18).
 
-A copy of ``repro/overlay/events.py`` (without the stochastic trace
-generator).  Two host-side primitives the control plane is built from:
+A copy of ``repro/overlay/events.py``.  Two host-side primitives the
+control plane is built from:
 
 * :class:`ChurnTrace` — a time-ordered stream of join/leave/fail events,
-  scripted, applied to a :class:`repro_torch.core.ndmp.Simulator` as
-  simulated time advances.
+  either scripted (benchmark reproductions) or stochastic (Poisson
+  arrivals/departures, the paper's sustained-churn setting), applied to
+  a :class:`repro_torch.core.ndmp.Simulator` as simulated time advances.
 * :class:`DeltaTracker` — the neighbor-table delta extractor: it polls
   :meth:`Simulator.neighbor_tables` between control steps (guarded by
   the cheap :meth:`Simulator.tables_version` stamp) and reports what
   changed as an epoch-stamped :class:`TableDelta`.
 
 Neither touches device state; :mod:`repro_torch.overlay.controller` turns the
-deltas into recompiled mixers.
+deltas into rebuilt mixers.
 
 Churn-window cursor semantics
 -----------------------------
@@ -37,7 +38,9 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import Dict, FrozenSet, Iterable, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from ..core.ndmp import SimulatorProtocol
 
@@ -80,6 +83,10 @@ class ChurnTrace:
         ordered = tuple(sorted(self.events, key=lambda e: (e.time, e.node_id)))
         object.__setattr__(self, "events", ordered)
         object.__setattr__(self, "_times", [e.time for e in ordered])
+
+    @property
+    def horizon(self) -> float:
+        return self.events[-1].time if self.events else 0.0
 
     def between(self, t0: float, t1: float) -> Tuple[ChurnEvent, ...]:
         """Events with time in the half-open window (t0, t1]."""
@@ -128,6 +135,38 @@ class ChurnTrace:
                                       bootstrap=int(boot)))
         return cls(events=tuple(out))
 
+    @classmethod
+    def stochastic(cls, *, horizon: float, join_rate: float = 0.0,
+                   fail_rate: float = 0.0, leave_rate: float = 0.0,
+                   initial_ids: Sequence[int] = (), first_new_id: int = 10_000,
+                   min_alive: int = 2, seed: int = 0) -> "ChurnTrace":
+        """Poisson churn: exponential inter-arrival times per event kind,
+        departures drawn uniformly from the nodes alive at that instant
+        (never dropping below ``min_alive``)."""
+        rng = np.random.default_rng(seed)
+        proposals: List[Tuple[float, str]] = []
+        for kind, rate in (("join", join_rate), ("fail", fail_rate),
+                           ("leave", leave_rate)):
+            if rate <= 0.0:
+                continue
+            t = float(rng.exponential(1.0 / rate))
+            while t <= horizon:
+                proposals.append((t, kind))
+                t += float(rng.exponential(1.0 / rate))
+        proposals.sort()
+        alive = sorted(int(i) for i in initial_ids)
+        next_id = first_new_id
+        events: List[ChurnEvent] = []
+        for t, kind in proposals:
+            if kind == "join":
+                events.append(ChurnEvent(time=t, kind="join", node_id=next_id))
+                alive.append(next_id)
+                next_id += 1
+            elif len(alive) > min_alive:
+                victim = alive.pop(int(rng.integers(len(alive))))
+                events.append(ChurnEvent(time=t, kind=kind, node_id=victim))
+        return cls(events=tuple(events))
+
 
 # --------------------------------------------------------------------------
 # Neighbor-table deltas
@@ -138,7 +177,7 @@ class TableDelta:
     """What changed in the live neighbor tables between two polls.
 
     ``epoch`` increases by one per poll *that observed a change*;
-    quiescent polls return the previous epoch and no change.
+    quiescent polls return the previous epoch with ``empty`` True.
     ``changed`` maps surviving nodes whose neighbor set differs to their
     (old, new) sets.
     """
@@ -148,6 +187,14 @@ class TableDelta:
     joined: FrozenSet[int]
     left: FrozenSet[int]
     changed: Dict[int, Tuple[FrozenSet[int], FrozenSet[int]]]
+
+    @property
+    def empty(self) -> bool:
+        return not (self.joined or self.left or self.changed)
+
+    @property
+    def num_affected(self) -> int:
+        return len(self.joined) + len(self.left) + len(self.changed)
 
 
 class DeltaTracker:
@@ -162,6 +209,11 @@ class DeltaTracker:
         self.epoch = 0
         self._version = sim.tables_version()
         self._tables = sim.neighbor_tables()
+
+    @property
+    def tables(self) -> Dict[int, frozenset]:
+        """The table snapshot as of the last poll."""
+        return self._tables
 
     def poll(self) -> TableDelta:
         version = self.sim.tables_version()

@@ -42,9 +42,17 @@ buffer, which is free until the round writes it.
 format (:mod:`repro_torch.ckpt`): its leaf list, in the reference's
 order, with the step and the slot occupancy, so a checkpoint of either
 package's loop restores in the other.  ``restore`` copies into the
-resident buffers in place.  A simulator that offers ``data_faults()``
-(the reference's chaos engine, Queue 1 item 6) turns on degraded rounds
-through the mixer's ``edge_mask``.
+resident buffers in place.
+
+A simulator that offers ``data_faults()`` (a
+:class:`repro_torch.faults.ChaosEngine`) turns on **degraded rounds**:
+every round the active link outages, stragglers and partition are
+lowered to the (capacity, 2L) unreachable-edge mask that the mixer takes
+as a runtime input, and ``health`` (a
+:class:`repro_torch.faults.HealthTracker`) folds its suspect and evicted
+peers into the same mask.  The round ledger then carries each round's
+``faults_injected`` (the chaos engine's injections since the previous
+round) and ``degraded_edges``.
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ import torch
 from ..ckpt.checkpoint import load as ckpt_load, save as ckpt_save, state_leaves
 from ..core.mixing import multirate_participation
 from ..dist.flat import tree_flatten
-from ..faults.plan import edge_mask_for
+from ..faults.plan import DataFaults, edge_mask_for
 from ..obs.events import get_telemetry
 from ..obs.rounds import get_round_ledger, round_ledger
 from ..overlay.controller import OverlayController
@@ -122,7 +130,7 @@ class SlotTrainLoop:
                  optimizer,
                  make_batch: Callable[[Sequence[int], int], Dict[str, torch.Tensor]],
                  periods: Optional[Dict[int, float]] = None,
-                 ledger=None):
+                 ledger=None, health=None):
         if controller.slots is None:
             raise ValueError(
                 "SlotTrainLoop needs a capacity-mode controller "
@@ -139,6 +147,13 @@ class SlotTrainLoop:
         self.make_batch = make_batch
         self.periods = periods
         self._ledger = ledger
+        self.health = health
+        # degraded rounds: a chaos engine (anything with data_faults())
+        # as the controller's simulator, and/or a health tracker
+        self._chaos_engine = (controller.sim
+                              if hasattr(controller.sim, "data_faults") else None)
+        self._faults_on = self._chaos_engine is not None or health is not None
+        self._last_fault_count = 0
         self._step = 0
         self._bytes_cache: Dict[tuple, tuple] = {}
         self.records: List[SlotStepRecord] = []
@@ -210,16 +225,33 @@ class SlotTrainLoop:
             mask[slot_of[u]] *= part[i]
         return mask
 
-    def _edge_mask(self) -> Tuple[Optional[np.ndarray], int]:
-        """The round's (capacity, 2L) unreachable-edge mask from the
-        simulator's ``data_faults()``, or (None, 0) without one."""
-        sim = self.controller.sim
-        if not hasattr(sim, "data_faults"):
+    def _edge_mask(self, now: float) -> Tuple[Optional[np.ndarray], int]:
+        """The round's (capacity, 2L) unreachable-edge mask, or (None, 0)
+        without fault plumbing: the chaos engine's data-plane faults and
+        the health tracker's unhealthy peers (polled at ``now``), as one
+        host-built numpy mask."""
+        if not self._faults_on:
             return None, 0
+        df = (self._chaos_engine.data_faults()
+              if self._chaos_engine is not None else DataFaults())
+        if self.health is not None:
+            self.health.poll(now)
+            bad = self.health.unhealthy()
+            if bad:
+                df = DataFaults(down_pairs=df.down_pairs,
+                                slow_nodes=df.slow_nodes | bad, groups=df.groups)
         ctl = self.controller
         slot_nodes = [ctl.slots.node_at(s) for s in range(self.capacity)]
-        em = edge_mask_for(ctl.schedule, slot_nodes, sim.data_faults())
+        em = edge_mask_for(ctl.schedule, slot_nodes, df)
         return em, int((em == 0.0).sum())
+
+    def _faults_injected(self) -> int:
+        """The chaos engine's injections since the previous round."""
+        if self._chaos_engine is None or not hasattr(self._chaos_engine, "counts"):
+            return 0
+        total = sum(self._chaos_engine.counts.values())
+        delta, self._last_fault_count = total - self._last_fault_count, total
+        return delta
 
     def _capacity_batch(self, alive: Tuple[int, ...], step: int):
         """Scatter the alive-set batch onto capacity rows (dead slots
@@ -293,32 +325,26 @@ class SlotTrainLoop:
         for have, exp in zip(leaves, want):
             exp.copy_(have)
         self._step = int(meta["step"])
+        self._last_fault_count = (sum(self._chaos_engine.counts.values())
+                                  if hasattr(self._chaos_engine, "counts") else 0)
         return meta
 
     # ---- telemetry -------------------------------------------------------
     def _record_round(self, ledger, step: int, report, participating: int,
-                      loss: float, joined, left, degraded_edges: int) -> None:
+                      loss: float, joined, left, faults_injected: int,
+                      degraded_edges: int) -> None:
         """One :class:`repro_torch.obs.rounds.RoundRecord`: the closed-form
         wire bytes for this round's participation (the codec's wire
         image) beside the payload bytes (the uncompressed row, as the
         reference's ledger has it), and the control-plane latencies
         (repair = the schedule rebuild churn forced, commit = the
         staged-swap flip)."""
-        from ..dist.sync import sync_bytes_per_client
+        from ..dist.sync import round_bytes_per_client
         ctl = self.controller
-        key = (ctl.strategy, ctl.schedule.num_spaces,
-               max(int(participating), 1))
-        cached = self._bytes_cache.get(key)
-        if cached is None:
-            kwargs = dict(num_spaces=key[1], active_clients=key[2])
-            row_bytes = 4 * self._spec.size
-            wire = sync_bytes_per_client(ctl.strategy, row_bytes, self.capacity,
-                                         codec=ctl.codec, **kwargs)
-            payload = (sync_bytes_per_client(ctl.strategy, row_bytes,
-                                             self.capacity, **kwargs)
-                       if ctl.codec is not None else wire)
-            cached = self._bytes_cache[key] = (wire, payload)
-        wire, payload = cached
+        wire, payload = round_bytes_per_client(
+            self._bytes_cache, ctl.strategy, 4 * self._spec.size, self.capacity,
+            codec=ctl.codec, num_spaces=ctl.schedule.num_spaces,
+            active_clients=max(int(participating), 1))
         ledger.record(
             round=step, time=report.time, loop="slot",
             num_alive=len(report.alive), participating=int(participating),
@@ -327,7 +353,7 @@ class SlotTrainLoop:
             swapped=report.swapped, rebuilt=report.rebuilt,
             cache_hit=report.cache_hit, joined=joined, left=left,
             repair_ms=report.rebuild_ms, commit_ms=ctl.last_commit_ms,
-            degraded_edges=degraded_edges)
+            faults_injected=faults_injected, degraded_edges=degraded_edges)
 
     # ---- the loop --------------------------------------------------------
     def run(self, num_steps: int,
@@ -353,7 +379,7 @@ class SlotTrainLoop:
         alive_mask = ctl.alive_mask()
         mix_mask = self._mix_mask(alive, alive_mask, step)
         batch = self._capacity_batch(alive, step)
-        em, degraded = self._edge_mask()
+        em, degraded = self._edge_mask(report.time)
         params, opt_state, metrics = self.local_step(
             self._spec.unravel(self.params), self.opt_state, batch, alive_mask)
         self._spec.ravel(params, out=self.params)
@@ -382,6 +408,6 @@ class SlotTrainLoop:
             bus.gauge("slot.participating", part)
         ledger = get_round_ledger()
         if ledger is not None:
-            self._record_round(ledger, step, report, part, loss, joined,
-                               left, degraded)
+            self._record_round(ledger, step, report, part, loss, joined, left,
+                               self._faults_injected(), degraded)
         self._step += 1

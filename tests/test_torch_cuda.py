@@ -3,8 +3,10 @@
 ``gather_mix_int8``, ``dequant_accumulate``, ``ssd_scan`` and
 ``weighted_mix`` kernels against their plain PyTorch versions, and the
 serving and slot training loops (codec-free and under the block codecs),
-the Mamba2 prefill, the DFL engine over its three tasks and the training
-front door's step on the card against the same on the CPU.  Every test
+the Mamba2 prefill, the DFL engine over its three tasks, the training
+front door's step, and the churn, degraded and cohort rounds
+(``ChurnTrainLoop``, ``SlotTrainLoop`` under a ``ChaosEngine``,
+``CohortStreamLoop``) on the card against the same on the CPU.  Every test
 here needs an NVIDIA GPU and skips without one; the file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
 
@@ -1256,3 +1258,153 @@ def test_first_gradient_card_matches_f64(cuda, kind):
         sl = slice(off, off + int(np.prod(shape)))
         top = ref[sl].abs().max().item()
         assert (got[sl] - ref[sl]).abs().max().item() <= 1e-5 * top, leaf
+
+
+# --------------------------------------------------------------------------
+# Churn, faults and scale: the three paths that mix through gather_mix
+# --------------------------------------------------------------------------
+
+CHURN_TRACE = [(1.5, "fail", 3), (4.5, "join", 3, 0), (6.5, "join", 70, 0)]
+
+
+def test_churn_loop_card_matches_cpu(cuda):
+    """tiny_lm under ChurnTrainLoop (a fail, the same id's rejoin, a new
+    id's join; 8 steps) on the card and on the CPU from the same
+    parameters and data: the same records but for the loss, each loss
+    within 1e-4 relative (f32 on both, the card sums in other orders),
+    and one gather_mix launch a step on the card."""
+    from repro_torch.core.ndmp import Simulator
+    from repro_torch.dist.flat import tree_map
+    from repro_torch.launch.steps import dfl_train_bundle
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.overlay import ChurnTrace, ChurnTrainLoop, OverlayController
+    cfg = tiny_lm(layers=2)
+    runs = []
+    for device in ("cpu", cuda):
+        sim = Simulator(num_spaces=2, latency=0.05, heartbeat_period=0.5,
+                        probe_period=1.0, seed=0)
+        sim.seed_network(list(range(6)))
+        bundle = dfl_train_bundle(cfg, InputShape("t", 32, 1, "train"), 1, sgd(0.05),
+                                  sync="none")
+        loop = ChurnTrainLoop(
+            OverlayController(sim, fuse="flat"), local_step=bundle.step,
+            make_params=lambda u, d=device: tree_map(
+                lambda l: l.to(d), init_params(cfg, torch.Generator().manual_seed(u))),
+            optimizer=sgd(0.05),
+            make_batch=lambda ids, s, d=device: {k: torch.from_numpy(np.stack([
+                np.random.default_rng([u, s, i]).integers(0, cfg.vocab_size, (1, 32))
+                for u in ids])).to(d) for i, k in enumerate(("tokens", "labels"))})
+        before = gather_mix.launches
+        recs = loop.run(8, trace=ChurnTrace.scripted(CHURN_TRACE))
+        torch.cuda.synchronize()
+        runs.append((recs, gather_mix.launches - before))
+    (rc, lc), (rg, lg) = runs
+    fields = lambda r: (r.num_alive, r.swapped, r.cache_hit, r.joined, r.left)  # noqa: E731
+    assert [fields(r) for r in rg] == [fields(r) for r in rc]
+    assert any(r.cache_hit and r.joined == (3,) for r in rg)
+    assert lc == 0 and lg == 8
+    for a, b in zip(rg, rc):
+        assert abs(a.loss - b.loss) <= 1e-4 * abs(b.loss)
+
+
+def test_degraded_slot_loop_card_matches_cpu(cuda):
+    """The fault_storm partition arm at its quick size (n 8, 10 % loss,
+    a 2-way partition over [2, 14), 2 stragglers, an identity local step)
+    with a HealthTracker, 24 rounds, on the card and on the CPU: equal
+    edge masks and faults_injected every round, the rows within 1e-6 x
+    max|p|, one gather_mix launch a round, no buffer reallocated."""
+    from repro_torch.core.ndmp import Simulator
+    from repro_torch.faults import (ChaosEngine, FaultPlan, HealthTracker,
+                                    Partition, Straggler)
+    from repro_torch.obs.rounds import RoundLedger
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.overlay import OverlayController
+    from repro_torch.runtime.loop import SlotTrainLoop
+    from repro_torch.runtime.masked import masked_local_step
+
+    def step(params, opt_state, batch):
+        return params, opt_state, {"loss": (params["w"] ** 2).mean(dim=-1)}
+
+    runs = []
+    for device in ("cpu", cuda):
+        sim = Simulator(num_spaces=2, latency=0.05, heartbeat_period=0.5,
+                        probe_period=1.0, seed=0)
+        sim.seed_network(list(range(8)))
+        plan = FaultPlan(seed=7, msg_loss=0.1, partitions=(
+            Partition(2.0, 14.0, (tuple(range(4)), tuple(range(4, 8)))),),
+            stragglers=tuple(Straggler(2.0, 18.0, 7 - i) for i in range(2)))
+        ledger = RoundLedger()
+        loop = SlotTrainLoop(
+            OverlayController(ChaosEngine(sim, plan), capacity=8, fuse="flat",
+                              flat_io=True),
+            local_step=masked_local_step(step),
+            make_params=lambda u, d=device: {"w": torch.from_numpy(
+                np.random.default_rng(u).normal(size=64).astype(np.float32)).to(d)},
+            optimizer=sgd(0.0),
+            make_batch=lambda ids, s, d=device: {"x": torch.zeros((len(ids), 1), device=d)},
+            ledger=ledger, health=HealthTracker(1.0))
+        ptrs = {loop.params.data_ptr(), loop._spare.data_ptr()}
+        loop.health.suspect(0, 0.0)
+        before = gather_mix.launches
+        loop.run(24)
+        torch.cuda.synchronize()
+        assert {loop.params.data_ptr(), loop._spare.data_ptr()} == ptrs
+        runs.append((loop, ledger, gather_mix.launches - before))
+    (lc, ledc, nc), (lg, ledg, ng) = runs
+    assert nc == 0 and ng == 24
+    keys = ("faults_injected", "degraded_edges")
+    assert [[r.extra[k] for k in keys] for r in ledg.rows] == \
+        [[r.extra[k] for k in keys] for r in ledc.rows]
+    assert sum(r.extra["degraded_edges"] for r in ledg.rows) > 0
+    want = lc.params
+    assert (lg.params.cpu() - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+def test_cohort_loop_card_matches_cpu(cuda):
+    """CohortStreamLoop at the cohort_stream benchmark's quick size (n
+    2000, capacity 32, K 16, dim 256, 8 rounds, a 1 % fail and join burst
+    at mid-run) on the card and on the CPU: equal records but for the
+    host's remap ms, the rows within 1e-6 x max|buf|, one gather_mix
+    launch a round, and the two resident buffers only swap roles."""
+    from repro_torch.scale import CohortStreamLoop, VectorSimulator
+    runs = []
+    for device in ("cpu", cuda):
+        sim = VectorSimulator(num_spaces=3, latency=0.05, heartbeat_period=0.5,
+                              probe_period=1.0)
+        sim.seed_network(range(2000))
+        loop = CohortStreamLoop(
+            sim, capacity=32, cohort_size=16, seed=3, device=device,
+            make_params=lambda u: np.random.default_rng(u).random(256).astype(np.float32))
+        ptrs = {loop.buf.data_ptr(), loop.spare.data_ptr()}
+        before = gather_mix.launches
+        loop.run(4)
+        sim.fail_batch(range(20))
+        sim.join_batch(range(3000, 3020))
+        sim.run_for(30.0)
+        loop.run(4)
+        torch.cuda.synchronize()
+        assert {loop.buf.data_ptr(), loop.spare.data_ptr()} == ptrs
+        runs.append((loop, gather_mix.launches - before))
+    (lc, nc), (lg, ng) = runs
+    assert nc == 0 and ng == 8
+    fields = lambda r: (r.round, r.time, r.cohort_size, r.streamed_in,  # noqa: E731
+                        r.streamed_out, r.restored, r.donor_seeded, r.fresh, r.evicted)
+    assert [fields(r) for r in lg.records] == [fields(r) for r in lc.records]
+    assert list(lg.park) == list(lc.park)
+    scale = lc.buf.abs().max().item()
+    assert (lg.buf.cpu() - lc.buf).abs().max().item() <= 1e-6 * scale
+
+
+def test_cohort_loop_raises_above_gather_mix_capacity(cuda):
+    """On the card the cohort capacity is at most gather_mix's MAX_C
+    (224): 225 raises when the loop is built, 224 builds."""
+    from repro_torch.kernels.gather_mix import MAX_C
+    from repro_torch.scale import CohortStreamLoop, VectorSimulator
+    sim = VectorSimulator(num_spaces=3)
+    sim.seed_network(range(300))
+    kw = dict(cohort_size=8, make_params=lambda u: np.zeros(4, np.float32), device=cuda)
+    with pytest.raises(ValueError, match=f"<= {MAX_C}"):
+        CohortStreamLoop(sim, capacity=MAX_C + 1, **kw)
+    CohortStreamLoop(sim, capacity=MAX_C, **kw).run(1)
