@@ -23,8 +23,15 @@ Phases, each printing its lines:
    width, with times (each launch's device time from the profiler, one
    launch a call checked, the share of the bound, the wrapper's wall time
    a call) and two calls held bit for bit; ``gather_mix`` over f32 and
-   bf16, C from 2 to 200, ragged N, duplicate and tensor sources, and an output that is the
-   input; ``quantize_block`` and ``dequantize_block`` bit for bit
+   bf16, C from 2 to its limit (1,816; the register body up to 24, the
+   gather body above, the cohort round's 128 x 50,890), ragged N,
+   duplicate and tensor sources, and an output that is the input, with
+   the body each shape took, C one above the limit refused, and both
+   bodies timed at C 16, 24, 28, 32 and 64 over N 50,890, 2^20 and 2^23 (the
+   register body's threshold; each call one launch), and each body's
+   ptxas registers and spills in ``build:`` lines (the gather body's
+   within what two blocks of 512 an SM allow);
+   ``quantize_block`` and ``dequantize_block`` bit for bit
    (levels 127 and 7, blocks 128, 64 and 32, ragged N, all-zero blocks,
    subnormal scales, exact .5 ties, the residual in place too);
    ``gather_mix_int8`` for C from 2 to 200; ``mix_accumulate`` in both
@@ -64,7 +71,9 @@ Phases, each printing its lines:
    width with its depth cut to what fits (8 slots, 7 live, a fail and a
    join, sgd, fedlay mixing through ``gather_mix``), with its checks,
    per-round times, a profiled round, and the kernel at the round's
-   shape against its plain version and ``torch.matmul``;
+   shape against its plain version and ``torch.matmul``, and both of
+   its bodies there in turns (the gather body's output held to the
+   plain version on two column chunks);
 8. wire: the same round compressed, int8-block and then int4-block, at
    Llama-3.2-3B width with the depth cut to what fits beside the
    error-feedback residual and the wire, with its checks (launches per
@@ -121,7 +130,9 @@ Phases, each printing its lines:
    of 50,890 f32, the device round against the dense oracle, each K's
    records, park and rows held to the same calls on the CPU, the
    resident buffers' ``data_ptr``, rounds/s, remap ms and the kernel's
-   device time a round against its bound;
+   device time a round (the gather body, from the device tables, no
+   round matrix) against its bound, its plain version and
+   ``torch.matmul``, which it must not be slower than;
 12. dfl: the paper's DFL engine over Table III's three tasks, each
    aggregation one ``weighted_mix`` launch: ``Engine.run`` over
    ``MLPTask`` at its default width on MNIST's 28 x 28 input width (N =
@@ -430,6 +441,53 @@ def report_weighted_mix_build(log: str) -> None:
           f"{sum(v[1] for v in found.values())} B, loads "
           f"{sum(v[2] for v in found.values())} B in all; main path <{', '.join(map(str, WMIX_MAIN))}>: "
           f"{regs} registers, no spills")
+
+
+def report_gather_mix_build(log: str) -> None:
+    """One line per gather_mix body from ``nvcc -Xptxas -v``: how many
+    instantiations, their most registers and their spill bytes.  The
+    gather body's launch plan counts on GATHER_MIN_BLOCKS blocks of
+    GATHER_THREADS an SM, so every instantiation must fit that many in
+    the SM's 65,536 registers, and the cohort round's <f32, 8 B> must be
+    in the log and spill nothing."""
+    import re
+    from repro_torch.kernels.gather_mix import GATHER_MIN_BLOCKS, GATHER_THREADS
+    entry, spills, found = None, (0, 0), {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        t = entry and re.search(r"gather_mix_(gather|reg)I(f|13__nv_bfloat16)((?:Li\d+E)+)",
+                                entry)
+        if m and t:
+            key = (t[1], "f32" if t[2] == "f" else "bf16",
+                   *map(int, re.findall(r"\d+", t[3])))
+            found[key] = (int(m[1]), *spills)
+    budget = 65_536 // (GATHER_MIN_BLOCKS * GATHER_THREADS)
+    main = ("gather", "f32", 8)
+    check(main in found, f"ptxas reported no gather_mix_gather<{main[1]}, {main[2]}>")
+    for body, name in (("reg", "register"), ("gather", "gather")):
+        got = {k: v for k, v in found.items() if k[0] == body}
+        if not got:
+            continue
+        regs = max(v[0] for v in got.values())
+        stores, loads = sum(v[1] for v in got.values()), sum(v[2] for v in got.values())
+        line = (f"build: gather_mix's {name} body: {len(got)} instantiations, at most "
+                f"{regs} registers, spill stores {stores} B, loads {loads} B")
+        if body == "gather":
+            check(regs <= budget, f"gather_mix_gather takes {regs} registers, above the "
+                                  f"{budget} that {GATHER_MIN_BLOCKS} blocks of "
+                                  f"{GATHER_THREADS} an SM allow")
+            r, st, ld = found[main]
+            check(st == ld == 0, f"gather_mix_gather<f32, 8 B> spills {st} / {ld} B")
+            line += (f" (budget {budget}: {GATHER_MIN_BLOCKS} blocks of {GATHER_THREADS} an "
+                     f"SM); the cohort round's <f32, 8 B>: {r} registers, no spills")
+        print(line)
 
 
 def phase_kernels(torch, F, card):
@@ -1033,22 +1091,50 @@ def mix_table(torch, gen, C, K1):
     return srcs, w / w.sum(dim=1, keepdim=True)
 
 
-def check_gather_mix(torch):
+#: gather_mix's checked shapes: the register body up to C 24, the gather
+#: body above, the cohort round's (128, 50,890) f32 rows 8 bytes past a
+#: 16-byte boundary every other row, and C at the gather body's limit
+GATHER_CHECKS = [(2, 1), (3, 130), (8, 4096), (8, 1001), (16, 2050), (24, 1001), (32, 777),
+                 (33, 4096),
+                 (64, 3001), (200, 1000), (128, 50_890), (128, 50_891), (300, 1001),
+                 ("limit", 33)]
+#: the register body's threshold: both bodies timed at these C (the
+#: register body holds at most 32 rows), at the cohort round's N and two
+#: larger
+THRESHOLD_CS, THRESHOLD_KS, THRESHOLD_NS = (16, 24, 28, 32, 64), (5, 7), (50_890, 1 << 20,
+                                                                          1 << 23)
+
+
+def plan_name(plan) -> str:
+    if plan.body == "register":
+        return f"register {plan.width} B"
+    table = "table in shared memory" if plan.table else "table in device memory"
+    return (f"gather {plan.tile} x {plan.stages} stages {plan.width} B, {table}, "
+            f"{plan.blocks} blocks")
+
+
+def check_gather_mix(torch, card):
     """gather_mix against gather_mix_ref on the card, held to mix_tol:
-    f32 and bf16, C from 2 to 200 (registers up to 32, a shared-memory
-    tile above), ragged N, numpy and tensor sources, an output that is
-    the input."""
-    from repro_torch.kernels.gather_mix import gather_mix
+    f32 and bf16, C from 2 to the gather body's limit (registers up to
+    24, the gather body above), ragged N, numpy and tensor sources, an
+    output that is the input (bit for bit the out-of-place result), C one
+    above the limit refused; then both bodies timed where the register
+    body's threshold lies."""
+    from repro_torch.kernels.gather_mix import (GATHER_MAX_C, REGISTER_MAX_C, REGISTER_ROWS,
+                                                _sm_count,
+                                                gather_mix, gather_plan, launch,
+                                                launch_plan, register_plan)
     from repro_torch.kernels.ref import gather_mix_ref
     gen = torch.Generator(device="cuda").manual_seed(5)
-    worst = {}
+    worst, bodies = {}, {}
+    sms = _sm_count(0)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         worst[name] = 0.0
-        for C, N in [(2, 1), (3, 130), (8, 4096), (8, 1001), (16, 2050),
-                     (32, 777), (33, 4096), (64, 3001), (200, 1000)]:
+        for C, N in GATHER_CHECKS:
+            C = GATHER_MAX_C if C == "limit" else C
             buf = torch.randn((C, N), generator=gen, device="cuda").to(dtype)
-            srcs, w = mix_table(torch, gen, C, 5)
+            srcs, w = mix_table(torch, gen, C, 7 if C > REGISTER_MAX_C else 5)
             ref = gather_mix_ref(buf, srcs, w)
             for s in (srcs, srcs.cpu().numpy()):
                 out = gather_mix(buf, s, w)
@@ -1058,11 +1144,52 @@ def check_gather_mix(torch):
             check(gather_mix(inplace, srcs, w, out=inplace) is inplace,
                   "gather_mix did not return its out buffer")
             check(torch.equal(inplace, out), "gather_mix in place differs")
+            plan = launch_plan(C, srcs.shape[1], N, buf.element_size(), buf.data_ptr(),
+                               out.data_ptr(), sms)
+            bodies[f"{name} ({C}, {N})"] = plan_name(plan)
     torch.cuda.synchronize()
-    print(f"kernels: gather_mix on C in 2..200, ragged N, numpy and tensor "
+    over = GATHER_MAX_C + 1
+    try:
+        gather_mix(torch.zeros((over, 8), device="cuda"),
+                   torch.zeros((over, 1), dtype=torch.int32, device="cuda"),
+                   torch.ones((over, 1), device="cuda"))
+    except ValueError:
+        pass
+    else:
+        check(False, f"gather_mix took C = {over}")
+    print(f"kernels: gather_mix on C in 2..{GATHER_MAX_C}, ragged N, numpy and tensor "
           f"sources, in place: max abs err f32 {worst['float32']:.3e} (tol 1e-6 x "
           f"max|buf|), bf16 {worst['bfloat16']:.3e} (tol 2^-7 |ref| + 1e-6 "
-          f"max|buf|); in place == out of place bit for bit")
+          f"max|buf|); in place == out of place bit for bit; C {over} raises")
+    print("kernels: gather_mix bodies: " + "; ".join(f"{k} {v}" for k, v in bodies.items()))
+    said = []
+    for C in THRESHOLD_CS:
+        for N in THRESHOLD_NS:
+            buf = torch.randn((C, N), generator=gen, device="cuda")
+            out = torch.empty_like(buf)
+            cols = [slice(0, 65_536), slice(max(0, N - 65_536), N)]
+            for K1 in THRESHOLD_KS:
+                srcs, w = mix_table(torch, gen, C, K1)
+                srcs = srcs.int()
+                refs = [gather_mix_ref(buf[:, c], srcs, w) for c in cols]
+                at = (buf.data_ptr(), out.data_ptr(), sms)
+                plans = [gather_plan(C, K1, N, 4, *at)]
+                if C <= REGISTER_ROWS:
+                    plans.insert(0, register_plan(C, N, 4, *at))
+                times = []
+                for plan in plans:
+                    launch(buf, srcs, w, out, plan)
+                    for c, ref in zip(cols, refs):
+                        torch.testing.assert_close(out[:, c], ref, **mix_tol(buf))
+                    reps = max(5, min(50, int(2e9 / (C * N * 8))))
+                    ms = device_ms(torch, [lambda: launch(buf, srcs, w, out, plan)], reps)
+                    times.append(f"{plan.body} {ms:.4f}")
+                said.append(f"C {C} N {N} K1 {K1}: " + ", ".join(times))
+            del buf, out
+    print(f"kernels: gather_mix bodies, f32, device tables, device ms a call (each call "
+          f"one launch; the register body holds at most {REGISTER_ROWS} rows and the plan "
+          f"takes it up to C {REGISTER_MAX_C}): "
+          + "; ".join(said) + f" ({card})")
 
 
 def bits(t):
@@ -1343,6 +1470,35 @@ def fit_depth(torch, base, resident_of, step_bytes=None):
     return best + (limit,)
 
 
+def body_turns(torch, buf, srcs, weights, out, scale) -> dict:
+    """gather_mix's register and gather bodies on the same f32 (C, N) round
+    (C within the register body's rows), in turns: the plan's body, the
+    other, the other, the plan's; device ms a call of each turn, by body.
+    The other body's output is held to the plain version within 1e-6 x
+    ``scale`` on the first and last column chunks."""
+    from repro_torch.kernels.gather_mix import (_sm_count, gather_plan, launch, launch_plan,
+                                                register_plan)
+    from repro_torch.kernels.ref import gather_mix_ref, gather_table
+    C, N = buf.shape
+    table = gather_table(C, srcs, weights).to(device=buf.device, dtype=torch.int32)
+    at = (buf.data_ptr(), out.data_ptr(), _sm_count(buf.device.index))
+    mine = launch_plan(C, table.shape[1], N, 4, *at)
+    other = (gather_plan(C, table.shape[1], N, 4, *at) if mine.body == "register"
+             else register_plan(C, N, 4, *at))
+    turns = {mine.body: [], other.body: []}
+    for plan in (mine, other, other, mine):
+        launch(buf, table, weights, out, plan)
+        if plan is other and not turns[other.body]:
+            for a in sorted({0, max(0, N - CHUNK)}):
+                ref = gather_mix_ref(buf[:, a:a + CHUNK], table, weights)
+                err = (out[:, a:a + CHUNK] - ref).abs().max().item()
+                check(err <= 1e-6 * scale, f"gather_mix's {other.body} body differs from "
+                                           f"the plain version by {err}")
+        turns[plan.body].append(device_ms(torch, [lambda: launch(buf, table, weights, out,
+                                                                 plan)], 3))
+    return turns
+
+
 def phase_train(torch, card):
     """The DFL round at Llama-3.2-3B width, with its checks and times."""
     import numpy as np
@@ -1515,6 +1671,11 @@ def phase_train(torch, card):
     t_ops = 2 * C * C * N / F32_FLOPS_PER_S
     bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                                      else "operations")
+    turns = body_turns(torch, inp, srcs, weights, out, scale)
+    print(f"train: gather_mix's bodies at the round's shape, in turns (the plan's "
+          f"first): " + "; ".join(f"{b} " + " / ".join(f"{t:.3f}" for t in ts) + " ms"
+                                  for b, ts in turns.items())
+          + f"; bound {bound_ms:.3f} ms ({card})")
     print(f"train: gather_mix f32 at the round's shape C = {C}, K1 = "
           f"{srcs.shape[1]}, N = {N}: device time per call: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms (over column chunks of {CHUNK}), bound "
@@ -3143,7 +3304,7 @@ def churn_cohort(torch, card) -> int:
     """(c) Cohort streaming at population scale on the card, each K held
     to the same calls on the CPU; returns its gather_mix launches."""
     import numpy as np
-    from repro_torch.kernels.gather_mix import gather_mix
+    from repro_torch.kernels.gather_mix import _sm_count, gather_mix, launch_plan
     from repro_torch.kernels.ref import gather_mix_ref, round_matrix
     cohort_oracle(torch)
     fields = lambda r: (r.round, r.time, r.cohort_size, r.streamed_in,  # noqa: E731
@@ -3186,21 +3347,21 @@ def churn_cohort(torch, card) -> int:
                                               out=loop.spare)], 50)
     plain_ms = device_ms(torch, [lambda: gather_mix_ref(loop.buf, loop.srcs,
                                                         loop.weights)], 10)
+    # the yardstick's dense W only: the gather body builds no round matrix
     W = round_matrix(C, loop.srcs, loop.weights)
-    table_ms = device_ms(torch, [lambda: round_matrix(C, loop.srcs, loop.weights)], 50)
     library_ms = device_ms(torch, [lambda: torch.matmul(W, loop.buf, out=loop.spare)], 50)
-    # the function needs each row's K1 sources (C x K1 x N products) and
-    # its bytes; the kernel's dense W . buf does C x C x N
     K1 = loop.srcs.shape[1]
+    plan = launch_plan(C, K1, N, 4, loop.buf.data_ptr(), loop.spare.data_ptr(), _sm_count(0))
+    # the function needs each row's K1 sources (C x K1 x N products) and
+    # its bytes
     bound_ms = max(2 * C * N * 4 / HBM_BYTES_PER_S, 2 * C * K1 * N / F32_FLOPS_PER_S) * 1e3
-    dense_ms = 2 * C * C * N / F32_FLOPS_PER_S * 1e3
+    check(ms <= library_ms, f"gather_mix at the cohort round, {ms:.4f} ms, is slower "
+          f"than torch.matmul(W, buf), {library_ms:.4f} ms")
     print(f"churn: gather_mix f32 at the cohort round's shape C = {C}, K1 = {K1}, "
-          f"N = {N}, device tables: kernel {ms:.4f} ms a round (of it the round "
-          f"matrix from the tables {table_ms:.4f}), plain {plain_ms:.4f} ms, "
-          f"torch.matmul(W, buf) {library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes, "
-          f"2 x C x N x 4 at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {100 * bound_ms / ms:.1f} % "
-          f"of it); the kernel's dense C x C x N products alone {dense_ms:.4f} ms at "
-          f"the f32 rate ({card})")
+          f"N = {N}, device tables, {plan_name(plan)}: kernel {ms:.4f} ms a round, "
+          f"plain {plain_ms:.4f} ms, torch.matmul(W, buf) {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes, 2 x C x N x 4 at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"{100 * bound_ms / ms:.1f} % of it) ({card})")
     return total
 
 
@@ -3839,6 +4000,7 @@ def weighted_mix_turn(torch, root: Path, card: str) -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs one NVIDIA "
@@ -3867,13 +4029,14 @@ def main() -> int:
     print(f"build: {', '.join(f'{n}.cu' for n in SOURCES)} for sm_90a, "
           f"in parallel, in {time.perf_counter() - t0:.1f} s")
     for name in SOURCES:
-        if name in ("flash_decode", "weighted_mix"):
+        if name in ("flash_decode", "weighted_mix", "gather_mix"):
             continue
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build: {name}:", line.strip())
     report_flash_decode_build(logs["flash_decode"])
     report_weighted_mix_build(logs["weighted_mix"])
+    report_gather_mix_build(logs["gather_mix"])
 
     # the one-rank client group the per-rank mixer runs over
     with socket.socket() as sock:
@@ -3890,7 +4053,7 @@ def main() -> int:
             phase_churn(torch, card)
             return 0
         phase_kernels(torch, F, card)
-        check_gather_mix(torch)
+        check_gather_mix(torch, card)
         check_wire_kernels(torch)
         check_dequant_accumulate(torch)
         check_ssd_scan(torch)
@@ -3929,6 +4092,7 @@ def main() -> int:
         dfl_entry = phase_dfl(torch, card)
     finally:
         mesh.close()
+    print(f"script: {time.perf_counter() - started:.1f} s, the build included")
     print(json.dumps({"kernels": [dfl_entry, serve_entry, train_entry] + [
         wire[k] for k in ("mix_accumulate", "quantize_block", "dequantize_block")]
         + [mesh_entry, wire["gather_mix_int8"], ssm_entry]}))

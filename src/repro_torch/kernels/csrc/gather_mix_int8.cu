@@ -27,7 +27,8 @@
 //   * 32 < C <= 224: a block dequantizes a tile of columns (C x TILE f32)
 //     into shared memory beside W, synchronises, and computes the tile's C
 //     output rows.
-// The sum over sources is fmaf over k = 0..C-1, as in gather_mix.cu.
+// The sum over sources is fmaf over k = 0..C-1, as in gather_mix.cu's
+// register body.
 // Indices are 64-bit.
 
 #include <cuda_bf16.h>

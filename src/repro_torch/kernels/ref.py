@@ -7,8 +7,10 @@ kernels (``weighted_mix``, ``flash_decode``, ``gather_mix``,
 ``dequantize_block``, ``dequant_accumulate`` and ``gather_mix_int8``),
 and the Mamba2 SSD scan's (:func:`ssd_scan_ref`, the sequential
 recurrence, and :func:`ssd_chunked_ref`, the chunked dual form
-``ssd_scan``'s kernel is held to) are here, with :func:`round_matrix`,
-which the two gathers run outside their kernels, :func:`masked_weights`,
+``ssd_scan``'s kernel is held to) are here, with :func:`gather_table`,
+which checks the two gathers' tables, :func:`round_matrix`, which
+``gather_mix_int8`` runs outside its kernel (``gather_mix``'s register
+body scatters its table inside its own), :func:`masked_weights`,
 which ``weighted_mix`` runs outside its kernel, and :func:`padded_width`.
 """
 
@@ -90,15 +92,12 @@ def weighted_mix_ref(models: torch.Tensor, weights: torch.Tensor,
     return acc.to(models.dtype)
 
 
-def round_matrix(C: int, srcs, weights: torch.Tensor) -> torch.Tensor:
-    """Scatter a (C, K1) ``(srcs, weights)`` gather table into the dense
-    (C, C) f32 round-mixing matrix ``W[i, srcs[i, k]] += weights[i, k]``
-    on the weights' device (duplicate sources add).
-
-    The port of ``repro/kernels/weighted_mix.py:round_matrix``.  Host
-    ``srcs`` (numpy or a sequence) are checked for range eagerly; a
-    tensor ``srcs`` (the cohort case, where the table is data) is the
-    caller's contract, as a traced one is in the reference."""
+def gather_table(C: int, srcs, weights: torch.Tensor) -> torch.Tensor:
+    """Check a (C, K1) ``(srcs, weights)`` gather table as the reference's
+    ``round_matrix`` does and return ``srcs`` as a tensor.  Host ``srcs``
+    (numpy or a sequence) are checked for range eagerly; a tensor
+    ``srcs`` (the cohort case, where the table is data) is the caller's
+    contract, as a traced one is in the reference."""
     if not isinstance(srcs, torch.Tensor):
         srcs = np.asarray(srcs, np.int64)
         if srcs.min() < 0 or srcs.max() >= C:
@@ -108,7 +107,17 @@ def round_matrix(C: int, srcs, weights: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"srcs {tuple(srcs.shape)} / weights {tuple(weights.shape)} do "
             f"not match {(C,)} clients")
-    srcs = srcs.to(device=weights.device, dtype=torch.int64)
+    return srcs
+
+
+def round_matrix(C: int, srcs, weights: torch.Tensor) -> torch.Tensor:
+    """Scatter a (C, K1) ``(srcs, weights)`` gather table, checked by
+    :func:`gather_table`, into the dense (C, C) f32 round-mixing matrix
+    ``W[i, srcs[i, k]] += weights[i, k]`` on the weights' device
+    (duplicate sources add).
+
+    The port of ``repro/kernels/weighted_mix.py:round_matrix``."""
+    srcs = gather_table(C, srcs, weights).to(device=weights.device, dtype=torch.int64)
     rows = torch.arange(C, device=weights.device)[:, None].expand(srcs.shape)
     W = torch.zeros((C, C), dtype=torch.float32, device=weights.device)
     return W.index_put_((rows, srcs), weights.float(), accumulate=True)

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from .gather_mix import MAX_C, _sm_count
+from .gather_mix import _sm_count
 from .ref import (dequant_accumulate_ref, dequantize_block_ref, gather_mix_int8_ref,
                   padded_width, quantize_block_ref, round_matrix)
 
@@ -40,6 +40,10 @@ __all__ = ["padded_width", "quantize_block", "dequantize_block",
 
 #: The block widths the CUDA kernels serve.
 KERNEL_BLOCKS = (32, 64, 128)
+#: The largest C of the CUDA ``gather_mix_int8``: its dense (C, C) round
+#: matrix and a 32-column tile of all C rows fit a block's shared memory
+#: (``csrc/gather_mix_int8.cu:MAX_C``).
+INT8_MAX_C = 224
 
 _ptr, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
@@ -248,7 +252,9 @@ def gather_mix_int8(q: torch.Tensor, scales: torch.Tensor, srcs,
     population: row i of the result is Σ_k weights[i, k] ·
     dequant(q, scales)[srcs[i, k]], f32, the (srcs, weights) table
     scattered into the dense round matrix by
-    :func:`repro_torch.kernels.ref.round_matrix` as in ``gather_mix``.
+    :func:`repro_torch.kernels.ref.round_matrix` (the matrix that
+    ``gather_mix``'s register body builds in its own shared memory), at
+    every C.
 
     Returns (C, NB·block) f32, as the reference does, or writes ``out``,
     a (C, n) f32 buffer with n ≤ NB·block, with the first n columns: a
@@ -256,7 +262,7 @@ def gather_mix_int8(q: torch.Tensor, scales: torch.Tensor, srcs,
     sees the block padding.  Raises ``ValueError`` for q and scales that
     do not agree with ``block``, a bad table (the reference's messages)
     or ``out``, and, on the card, for a block the kernel does not serve,
-    non-contiguous operands, or C above ``MAX_C``."""
+    non-contiguous operands, or C above :data:`INT8_MAX_C`."""
     C, Nq = q.shape
     if Nq % block or tuple(scales.shape) != (C, Nq // block):
         raise ValueError(f"q {tuple(q.shape)} / scales {tuple(scales.shape)} do "
@@ -275,9 +281,9 @@ def gather_mix_int8(q: torch.Tensor, scales: torch.Tensor, srcs,
     if q.dtype != torch.int8 or scales.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA gather_mix_int8 takes int8 q and bf16 scales, "
                          f"got {q.dtype} and {scales.dtype}")
-    if C > MAX_C:
+    if C > INT8_MAX_C:
         raise ValueError(f"the CUDA gather_mix_int8 keeps the (C, C) round matrix "
-                         f"in shared memory, so C <= {MAX_C}; got C={C}")
+                         f"in shared memory, so C <= {INT8_MAX_C}; got C={C}")
     if out is None:
         out = torch.empty((C, Nq), dtype=torch.float32, device=q.device)
     if not (q.is_contiguous() and scales.is_contiguous() and out.is_contiguous()):

@@ -19,8 +19,8 @@ Zero reallocation takes the place of the reference's zero retraces: the
 once and swap roles every round (their ``data_ptr`` never changes), and
 so are the round's tables and mask.  Stream-in is one in-place
 ``index_copy_`` of the incoming rows into the resident buffer.  On the
-card the capacity is bounded by ``gather_mix``'s ``MAX_C`` (224): a
-larger capacity raises ``ValueError`` when the loop is built.
+card the capacity is bounded by ``gather_mix``'s ``GATHER_MAX_C``
+(1,816): a larger capacity raises ``ValueError`` when the loop is built.
 
 The weighting contract (see the package docstring): the padded cohort
 schedule's dense image :func:`cohort_mixing_matrix` is row-stochastic,
@@ -227,16 +227,16 @@ class CohortStreamLoop:
                  restore_fn: Optional[
                      Callable[[int], Optional[np.ndarray]]] = None,
                  device="cuda"):
-        from ..kernels.gather_mix import MAX_C
+        from ..kernels.gather_mix import GATHER_MAX_C
 
         if cohort_size > capacity:
             raise ValueError(f"cohort_size {cohort_size} exceeds "
                              f"capacity {capacity}")
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and capacity > MAX_C:
+        if self.device.type == "cuda" and capacity > GATHER_MAX_C:
             raise ValueError(
-                f"the CUDA gather_mix mixes at most {MAX_C} slots, so the "
-                f"cohort capacity on the card is <= {MAX_C}; got {capacity}")
+                f"the CUDA gather_mix mixes at most {GATHER_MAX_C} slots, so the "
+                f"cohort capacity on the card is <= {GATHER_MAX_C}; got {capacity}")
         self.sim = sim
         self.capacity = capacity
         self.slots = SlotMap(capacity)

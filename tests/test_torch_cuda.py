@@ -22,7 +22,7 @@ import torch
 from repro_torch.configs import tiny_lm
 from repro_torch.kernels import flash_decode as fd_module
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.gather_mix import gather_mix
+from repro_torch.kernels.gather_mix import GATHER_MAX_C, gather_mix
 from repro_torch.kernels.ref import flash_decode_ref, gather_mix_ref
 from repro_torch.models.model import LanguageModel
 from repro_torch.runtime.serving import ServeLoop
@@ -292,10 +292,16 @@ def _mix_table(gen, C, K1=5):
 
 MIX_SHAPES = [(2, 1), (3, 130), (8, 4096), (8, 1001), (9, 4100), (16, 2050),
               (32, 777), (33, 4096), (64, 3001), (200, 1000), (224, 257)]
+#: gather_mix's shapes: MIX_SHAPES (gather_mix_int8's too), the cohort
+#: round's C 128 at N 50,890 (f32 rows 8 bytes past a 16-byte boundary
+#: every other row) and one more, C above gather_mix_int8's 224, and C at
+#: the gather body's limit
+GATHER_SHAPES = MIX_SHAPES + [(128, 50_890), (128, 50_891), (300, 1001),
+                              (GATHER_MAX_C, 33)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,N", MIX_SHAPES)
+@pytest.mark.parametrize("C,N", GATHER_SHAPES)
 def test_gather_mix_matches_plain(cuda, C, N, dtype):
     gen = torch.Generator(device=cuda).manual_seed(C * 7919 + N)
     buf = _rand(gen, C, N, dtype=dtype)
@@ -311,7 +317,8 @@ def test_gather_mix_matches_plain(cuda, C, N, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,N", [(8, 4096), (8, 1001), (33, 999), (200, 1000)])
+@pytest.mark.parametrize("C,N", [(8, 4096), (8, 1001), (33, 999), (200, 1000), (128, 50_890),
+                                 (128, 50_891), (300, 1001), (GATHER_MAX_C, 33)])
 def test_gather_mix_output_may_alias_the_input(cuda, C, N, dtype):
     """An out that is the input gives the out-of-place result bit for
     bit; a separate out is written and returned."""
@@ -352,9 +359,29 @@ def test_gather_mix_rejects_bad_layouts(cuda):
         gather_mix(buf, srcs, w.cpu())
     with pytest.raises(ValueError, match="out of range"):
         gather_mix(buf, srcs + 4, w)
-    big = torch.zeros((225, 8), device=cuda)
-    with pytest.raises(ValueError, match="C <= 224"):
-        gather_mix(big, np.zeros((225, 1), np.int64), torch.ones((225, 1), device=cuda))
+    C = GATHER_MAX_C + 1
+    big = torch.zeros((C, 8), device=cuda)
+    with pytest.raises(ValueError, match=f"C <= {GATHER_MAX_C}"):
+        gather_mix(big, np.zeros((C, 1), np.int64), torch.ones((C, 1), device=cuda))
+
+
+@pytest.mark.parametrize("bad", [-1, 64, 1 << 20, (1 << 32) + 5])
+def test_gather_mix_drops_a_device_source_outside_the_table(cuda, bad):
+    """A device source outside [0, C) is the caller's contract; the gather
+    body drops that term (as the reference's scatter drops an index >= C)
+    and reads nothing outside its staged tile; an int64 source past int32
+    is dropped too, not wrapped into the table."""
+    gen = torch.Generator(device=cuda).manual_seed(bad & 0xffff)
+    buf = _rand(gen, 64, 1001)
+    srcs, w = _mix_table(gen, 64, 7)
+    srcs[5, 3] = bad
+    kept = srcs.clone()
+    kept[5, 3] = 0
+    dropped = w.clone()
+    dropped[5, 3] = 0.0
+    out = gather_mix(buf, srcs, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, gather_mix_ref(buf, kept, dropped), **_mix_tol(buf))
 
 
 def test_slot_loop_card_matches_cpu(cuda):
@@ -1398,13 +1425,13 @@ def test_cohort_loop_card_matches_cpu(cuda):
 
 
 def test_cohort_loop_raises_above_gather_mix_capacity(cuda):
-    """On the card the cohort capacity is at most gather_mix's MAX_C
-    (224): 225 raises when the loop is built, 224 builds."""
-    from repro_torch.kernels.gather_mix import MAX_C
+    """On the card the cohort capacity is at most gather_mix's
+    GATHER_MAX_C (1,816): one more raises when the loop is built, the
+    limit builds and runs a round."""
     from repro_torch.scale import CohortStreamLoop, VectorSimulator
     sim = VectorSimulator(num_spaces=3)
     sim.seed_network(range(300))
     kw = dict(cohort_size=8, make_params=lambda u: np.zeros(4, np.float32), device=cuda)
-    with pytest.raises(ValueError, match=f"<= {MAX_C}"):
-        CohortStreamLoop(sim, capacity=MAX_C + 1, **kw)
-    CohortStreamLoop(sim, capacity=MAX_C, **kw).run(1)
+    with pytest.raises(ValueError, match=f"<= {GATHER_MAX_C}"):
+        CohortStreamLoop(sim, capacity=GATHER_MAX_C + 1, **kw)
+    CohortStreamLoop(sim, capacity=GATHER_MAX_C, **kw).run(1)

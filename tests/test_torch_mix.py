@@ -23,7 +23,10 @@ from repro_torch.core.mixing import (build_permute_schedule, masked_mixing_matri
 from repro_torch.dist.flat import FlatSpec
 from repro_torch.dist.sync import (check_fuse, global_mixer, resolve_wire,
                                    ring_schedule, sync_bytes_per_client)
-from repro_torch.kernels.gather_mix import gather_mix
+from repro_torch.kernels import gather_mix as gm_module
+from repro_torch.kernels import ref as ref_module
+from repro_torch.kernels.gather_mix import (GATHER_MAX_C, GATHER_MIN_BLOCKS, REGISTER_MAX_C,
+                                            SMEM_BYTES, gather_mix, launch_plan)
 from repro_torch.kernels.ref import gather_mix_ref, round_matrix
 
 F32_TOL = 1e-6
@@ -72,13 +75,14 @@ def test_round_matrix_rejects_bad_tables_with_the_reference_messages():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C,N", [(1, 5), (3, 130), (8, 1000), (33, 257)])
+@pytest.mark.parametrize("C,N", [(1, 5), (3, 130), (8, 1000), (33, 257), (128, 1001)])
 def test_gather_mix_matches_jax(C, N, dtype):
     """Against JAX gather_mix (interpret mode) and gather_mix_ref: f32
     within 1e-6 (max |buf| is about 4, and the sums are short); bf16
     within one bf16 step of the f32 result (2^-7 relative), since both
-    round the same f32 sum once."""
-    srcs, w = _table(C, 5, N)
+    round the same f32 sum once.  C 128 takes the cohort round's K1, 7
+    (2 x 3 spaces + 1), at a ragged N."""
+    srcs, w = _table(C, 7 if C == 128 else 5, N)
     rng = np.random.default_rng(C)
     x = rng.normal(size=(C, N)).astype(np.float32)
     jbuf = jnp.asarray(x).astype(getattr(jnp, dtype))
@@ -111,6 +115,87 @@ def test_gather_mix_writes_a_given_or_aliased_output():
         gather_mix(x, srcs, torch.from_numpy(w), out=torch.empty((4, 63)))
     with pytest.raises(ValueError, match=r"\(C, N\) buffer"):
         gather_mix(x[0], srcs, torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("C", [8, 40])
+def test_gather_mix_cpu_path_checks_the_table_and_builds_no_matrix(C, monkeypatch):
+    """The CPU path raises the reference's messages for an out-of-range
+    host table and a table that does not match C, and neither those checks
+    nor the mix build the (C, C) round matrix (the wrapper does not even
+    import it: on the card the register body scatters the table itself)."""
+    def no_matrix(*args, **kw):
+        raise AssertionError("the CPU path built the round matrix")
+    assert not hasattr(gm_module, "round_matrix")
+    monkeypatch.setattr(ref_module, "round_matrix", no_matrix)
+    srcs, w = _table(C, 3, C)
+    x = torch.randn((C, 70), generator=torch.Generator().manual_seed(C))
+    wt = torch.from_numpy(w)
+    assert torch.equal(gather_mix(x, srcs, wt), gather_mix_ref(x, srcs, wt))
+    bad = srcs.copy()
+    bad[C - 1, 2] = C
+    with pytest.raises(ValueError, match=f"out of range for {C} clients"):
+        gather_mix(x, bad, wt)
+    bad[C - 1, 2] = -1
+    with pytest.raises(ValueError, match=f"out of range for {C} clients"):
+        gather_mix(x, bad, wt)
+    with pytest.raises(ValueError, match="do not match"):
+        gather_mix(x, srcs[:-1], wt[:-1])
+    with pytest.raises(ValueError, match="do not match"):
+        gather_mix(x, torch.from_numpy(srcs), wt[:, :2])
+
+
+def _widest_allowed(itemsize, *addresses):
+    """The widest copy of 16, 8, 4 (and 2 for bf16) bytes that every
+    address is a multiple of."""
+    return max(w for w in (16, 8, 4, 2, 1)
+               if w >= itemsize and all(a % w == 0 for a in addresses))
+
+
+@pytest.mark.parametrize("offset", [0, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_mix_launch_plan(dtype, offset):
+    """The CUDA launch plan, for K1 1, 7 and 16 and every C from 1 to the
+    limit, at the cohort round's N 50,890 and a ragged N, rows from an
+    aligned base or one 8 bytes past it: the register body exactly up to
+    REGISTER_MAX_C, the gather body above, shared memory within a
+    block's 232,448 bytes (the ring, and the (C, K1) table where it fits
+    beside it), a gather tile of 32, 64 or 128 columns in 1 or 2 stages
+    (what the C entry takes), the widest copy width that the base, the
+    output and the row length allow (the register body: 4 or 2 elements,
+    or 1), a grid of at least one block and, for the gather body, at most
+    the GATHER_MIN_BLOCKS an SM that its registers allow, and ValueError
+    one above the limit.  The table goes to device memory
+    where shared memory cannot hold it, so the limit, 1,816, is the same
+    for every K1, and above the 1,024 that the cohort round's K1 7
+    needs."""
+    itemsize = dtype.itemsize
+    base, out = 1 << 20, 1 << 21
+    assert GATHER_MAX_C == 1816 and REGISTER_MAX_C == 24
+    for K1 in (1, 7, 16):
+        for N in (50_890, 1001):
+            rows = N * itemsize
+            for C in range(1, GATHER_MAX_C + 1):
+                plan = launch_plan(C, K1, N, itemsize, base + offset, out, 132)
+                assert plan.smem <= SMEM_BYTES and plan.blocks >= 1
+                if C <= REGISTER_MAX_C:
+                    assert plan.body == "register" and plan.smem == C * C * 4
+                    vec = 4 if C <= 16 else 2
+                    aligned = (base + offset) % (vec * itemsize) == 0 and N % vec == 0
+                    assert plan.width == (vec if aligned else 1) * itemsize
+                    continue
+                ring = plan.stages * C * plan.tile * itemsize
+                assert plan.body == "gather" and plan.tile in (32, 64, 128)
+                assert plan.stages in (1, 2) and ring <= SMEM_BYTES
+                assert plan.smem == ring + (C * K1 * 8 if plan.table else 0)
+                assert plan.table == (ring + C * K1 * 8 <= SMEM_BYTES)
+                assert plan.width == _widest_allowed(itemsize, base + offset, out, rows)
+                assert plan.blocks <= min(-(-N // plan.tile), GATHER_MIN_BLOCKS * 132)
+            with pytest.raises(ValueError, match=f"C <= {GATHER_MAX_C}"):
+                launch_plan(GATHER_MAX_C + 1, K1, N, itemsize, base + offset, out, 132)
+    # the cohort round: 8-byte copies (every other row of 50,890 f32 is 8
+    # bytes past a 16-byte boundary), its table in shared memory
+    cohort = launch_plan(128, 7, 50_890, 4, base, out, 132)
+    assert (cohort.body, cohort.table, cohort.width) == ("gather", True, 8)
 
 
 # --------------------------------------------------------------------------
